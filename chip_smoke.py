@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Smoke run of the torch + CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+
+1. print the card (``nvidia-smi``) and build every hand kernel of the
+   main path from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
+   all builds started together;
+2. hold each kernel against its plain torch version on the card at the
+   shapes the main path gives it (mlp demo, ragged, gemv, and the
+   qwen2-1.5b MLP block at its published widths), with stated tolerances;
+3. run ``repro_torch.core.pipeline.main(["--demo", "mlp", "--target",
+   "cuda"])``: sum 8.0, 4 launches, no plain-version call;
+4. compile and run the qwen2-1.5b gated MLP block (d_model 1536, d_ff
+   8960, silu, plus the residual) at T = 2048 tokens in f32 through
+   ``pipeline.compile(..., target="cuda")``: 5 launches, no plain-version
+   call, agreement with the plain block, and its time beside the same
+   module compiled for the library (``target="torch"``);
+5. print the ``{"kernels": [...]}`` line, the card line again, and as the
+   last line ``{"ok": true, "device": {...}}``.
+
+Every time is measured here with CUDA events (one call per sample, L2
+flushed before each, median): kernel times are the device's alone, the
+block's call time also with the host's share; every bound is computed
+here from this run's shapes and the H100 SXM data-sheet peaks below.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM data-sheet peaks: HBM3 bandwidth, and FP32 outside the tensor
+# cores (the rate the FFMA kernels run at)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+T_TOKENS = 2048
+SAMPLES = 15
+SPIN_CYCLES = 2_000_000   # ~1 ms at the H100's clocks: covers the host's enqueue
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def bound(bytes_moved: float, ops: float) -> tuple:
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: torch sees no CUDA card", flush=True)
+        return 2
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline, refs
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.tracer import TensorSpec
+    from repro_torch.kernels import _build, generic, ref
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.mlp import gated_mlp_block
+
+    # the plain versions are held to full f32 as well
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    wrappers = {"matmul": mm.matmul,
+                "block_map_region": generic.block_map_region,
+                "row_softmax": generic.row_softmax}
+
+    def reset_counts() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+            w.plain_calls = 0
+
+    def counts() -> dict:
+        return {n: (w.launches, w.plain_calls) for n, w in wrappers.items()}
+
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+
+    def time_ms(fn, with_host: bool = False) -> float:
+        """Median over SAMPLES of one call between CUDA events, the 50 MB
+        L2 flushed before each (the main path meets these inputs cold).
+        By default the card spins (~1 ms) before the start event, so the
+        host has enqueued the call before the card reaches it and the
+        time is the device's alone; ``with_host`` drops the spin, so a
+        host slower than the card shows in the time (what a caller of
+        the compiled module waits)."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(SAMPLES):
+            flush_buf.zero_()
+            if not with_host:
+                torch.cuda._sleep(SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        return statistics.median(samples)
+
+    def on_card(arr) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    # ---------------------------------------------------------------- 1
+    print(card_line(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    cfg = get_config("qwen2-1.5b")
+    d, d_ff = cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(0)
+    params_np = {   # xavier, as the reference's gated_mlp_spec
+        "w_gate": (rng.standard_normal((d, d_ff)) / np.sqrt(d)),
+        "w_up": (rng.standard_normal((d, d_ff)) / np.sqrt(d)),
+        "w_down": (rng.standard_normal((d_ff, d)) / np.sqrt(d_ff)),
+    }
+    params = convert.from_numpy_tree(
+        {k: v.astype(np.float32) for k, v in params_np.items()}, dev)
+    x_np = rng.standard_normal((T_TOKENS, d)).astype(np.float32)
+    x = on_card(x_np)
+
+    def block(xv):
+        return gated_mlp_block(params, xv, act=cfg.act)
+
+    spec = TensorSpec((T_TOKENS, d), "float32")
+    mod = pipeline.compile(block, spec, options=CompileOptions(target="cuda"))
+    mod_lib = pipeline.compile(block, spec,
+                               options=CompileOptions(target="torch"))
+    demo_fn, demo_specs, demo_example = pipeline._demo_mlp()
+    demo_mod = pipeline.compile(demo_fn, *demo_specs,
+                                options=CompileOptions(target="cuda"))
+
+    ragged = (127, 65, 129)
+    gemv_mk = (1000, 777)
+    sources = (kops.kernel_sources(mod.graph)
+               + kops.kernel_sources(demo_mod.graph)
+               + [mm.matmul_kernel(*mm.check_tiling(
+                   mm.default_tiling(*ragged, 4))),
+                  mm.matmul_kernel(*mm.check_tiling(
+                      mm.default_tiling(gemv_mk[0], 1, gemv_mk[1], 4)))])
+    t0 = time.perf_counter()
+    libs = _build.build_all(sources)
+    build_s = time.perf_counter() - t0
+    print(f"built {len(set(libs))} kernel libraries with nvcc for sm_90a "
+          f"in {build_s:.1f} s", flush=True)
+
+    # ---------------------------------------------------------------- 2
+    worst = {n: 0.0 for n in wrappers}
+
+    def compare(name, got, want, tol, what, relative=False) -> float:
+        """Max abs error of a kernel against its plain version: at most
+        ``tol`` (f32 at the demo sizes), or ``tol`` × max|plain| where a
+        long sum's order moves the last bits (K = 8960)."""
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        limit = tol * (float(want.float().abs().max()) if relative else 1.0)
+        ok = err <= limit and bool(torch.isfinite(got).all())
+        print(f"  {what}: max|kernel - plain| = {err:.3e} "
+              f"(limit {limit:.3e}) {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"{what} disagrees with its plain version")
+        worst[name] = max(worst[name], err)
+        return err
+
+    def randn(*shape, scale=1.0):
+        return on_card((rng.standard_normal(shape) * scale)
+                       .astype(np.float32))
+
+    print("phase 2: kernels vs plain versions on the card", flush=True)
+    gemms = [op for op in demo_mod.graph.ops if op.opname == "kk.gemm"]
+    for op in gemms:
+        (m, k), (_, n) = (o.type.shape for o in op.operands)
+        a, b = randn(m, k), randn(k, n, scale=k ** -0.5)
+        compare("matmul", mm.matmul(a, b, tiling=op.attrs["tiling"]),
+                ref.matmul(a, b), 1e-5, f"matmul mlp {m}x{k}x{n}")
+    m, k, n = ragged
+    a, b = randn(m, k), randn(k, n, scale=k ** -0.5)
+    compare("matmul", mm.matmul(a, b), ref.matmul(a, b), 1e-5,
+            f"matmul ragged {m}x{k}x{n}")
+    a, v = randn(*gemv_mk), randn(gemv_mk[1], scale=gemv_mk[1] ** -0.5)
+    compare("matmul", kops.gemv_cuda(a, v), ref.gemv(a, v), 1e-5,
+            f"gemv {gemv_mk[0]}x{gemv_mk[1]}")
+    block_gemms = [op for op in mod.graph.ops if op.opname == "kk.gemm"]
+    block_ins = {}
+    for op in block_gemms:
+        (m, k), (_, n) = (o.type.shape for o in op.operands)
+        a = randn(m, k)
+        b = params["w_down"] if k == d_ff else params["w_gate"]
+        block_ins.setdefault((m, k, n), (a, b, op.attrs["tiling"]))
+        compare("matmul", mm.matmul(a, b, tiling=op.attrs["tiling"]),
+                ref.matmul(a, b), 1e-4, f"matmul block {m}x{k}x{n}",
+                relative=True)
+
+    # (op, its module is the block) for every mapped nest on the path
+    nests = [(op, m is mod) for m in (demo_mod, mod) for op in m.graph.ops
+             if op.opname == "kokkos.team_parallel"]
+    nest_ins = []     # (kernel name, label, op, inputs, region, on_block)
+    for op, on_block in nests:
+        shape = op.results[0].type.shape
+        block_shape = op.attrs["tiling"]["block"]
+        args = [randn(*o.type.shape) for o in op.operands]
+        label = (" -> ".join(op.attrs.get("ops", (op.attrs["src"],)))
+                 + f" {'x'.join(map(str, shape))}")
+        if op.attrs["kind"] == "reduce":
+            compare("row_softmax",
+                    generic.row_softmax(args[0], block=block_shape),
+                    refs.softmax(args[0], -1), 1e-5, f"row_softmax {label}")
+            nest_ins.append(("row_softmax", label, op, args, None, on_block))
+        else:
+            region = op.regions[0] if op.regions else \
+                generic.one_op_region(op)
+            got = generic.block_map_region(region, args, shape, "float32",
+                                           block=block_shape)
+            compare("block_map_region", got, refs.region_ref(region)(*args),
+                    1e-5, f"block_map_region {label}")
+            nest_ins.append(("block_map_region", label, op, args, region,
+                             on_block))
+
+    # ---------------------------------------------------------------- 3
+    print("phase 3: --demo mlp --target cuda", flush=True)
+    demo_launches = demo_mod.launch_count
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pipeline.main(["--demo", "mlp", "--target", "cuda"])
+    torch.cuda.synchronize()
+    demo_counts = counts()
+    out = buf.getvalue().strip()
+    print(f"  {out}", flush=True)
+    if rc != 0:
+        fail(f"pipeline.main returned {rc}")
+    try:
+        total = float(out.rsplit("sum:", 1)[1])
+    except (IndexError, ValueError):
+        fail(f"unexpected demo output {out!r}")
+    if "output shape: (8, 10)" not in out or abs(total - 8.0) > 1e-4:
+        fail(f"demo output {out!r}, want shape (8, 10) and sum 8.0")
+    k2 = demo_counts["block_map_region"][0] + demo_counts["row_softmax"][0]
+    plain = sum(c[1] for c in demo_counts.values())
+    print(f"  launch_count {demo_launches}; launches {demo_counts}",
+          flush=True)
+    if demo_launches != 4 or demo_counts["matmul"][0] != 2 or k2 != 2 \
+            or plain != 0:
+        fail("demo did not run as 4 launches (2 matmul + 2 block_map) "
+             "with no plain-version call")
+
+    # ---------------------------------------------------------------- 4
+    print(f"phase 4: qwen2-1.5b gated MLP block, T={T_TOKENS}, f32",
+          flush=True)
+    reset_counts()
+    y = mod(x)
+    torch.cuda.synchronize()
+    block_counts = counts()
+    print(f"  launch_count {mod.launch_count}; launches {block_counts}",
+          flush=True)
+    if mod.launch_count != 5 or block_counts["matmul"] != (3, 0) or \
+            block_counts["block_map_region"] != (2, 0) or \
+            block_counts["row_softmax"][1] != 0:
+        fail("block did not run as 5 launches (3 matmul + 2 block_map) "
+             "with no plain-version call")
+    w = params
+    want = torch.matmul(torch.nn.functional.silu(x @ w["w_gate"])
+                        * (x @ w["w_up"]), w["w_down"]) + x
+    err = float((y - want).abs().max())
+    limit = 1e-4 * float(want.abs().max())
+    print(f"  block vs plain torch block: max abs err {err:.3e} "
+          f"(limit {limit:.3e})", flush=True)
+    if not (err <= limit and bool(torch.isfinite(y).all())
+            and tuple(y.shape) == (T_TOKENS, d)):
+        fail("the compiled block disagrees with the plain block")
+    y_lib = mod_lib(x)
+    torch.cuda.synchronize()
+    err_lib = float((y_lib - want).abs().max())
+    print(f"  library-compiled block vs plain block: {err_lib:.3e}",
+          flush=True)
+    block_ms = time_ms(lambda: mod(x), with_host=True)
+    block_lib_ms = time_ms(lambda: mod_lib(x), with_host=True)
+    block_dev_ms = time_ms(lambda: mod(x))
+    block_lib_dev_ms = time_ms(lambda: mod_lib(x))
+    gemm_flops = sum(2.0 * m * k * n for (m, k), (_, n) in
+                     ((o.operands[0].type.shape, o.operands[1].type.shape)
+                      for o in block_gemms))
+    print(f"  block call: cuda target {block_ms:.4f} ms, torch target "
+          f"(library_ms) {block_lib_ms:.4f} ms; device time alone "
+          f"{block_dev_ms:.4f} / {block_lib_dev_ms:.4f} ms; the 3 gemms are "
+          f"{gemm_flops / 1e9:.1f} GFLOP", flush=True)
+
+    # per-kernel times at the main path's shapes
+    rows = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "ops": 0.0, "bytes": 0.0}
+            for n in wrappers}
+    for op in block_gemms:
+        (m, k), (_, n) = (o.type.shape for o in op.operands)
+        a, b, tiling = block_ins[(m, k, n)]
+        t_k = time_ms(lambda: mm.matmul(a, b, tiling=tiling))
+        t_p = time_ms(lambda: ref.matmul(a, b))
+        t_l = time_ms(lambda: torch.matmul(a, b))
+        ops_n, bytes_n = 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+        b_ms, b_by = bound(bytes_n, ops_n)
+        print(f"  matmul {m}x{k}x{n} tiling {tiling}: {t_k:.4f} ms "
+              f"(plain {t_p:.4f}, torch.matmul {t_l:.4f}, bound "
+              f"{b_ms:.4f} by {b_by})", flush=True)
+        r = rows["matmul"]
+        r["ms"] += t_k
+        r["plain_ms"] += t_p
+        r["library_ms"] += t_l
+        r["ops"] += ops_n
+        r["bytes"] += bytes_n
+    for name, label, op, args, region, on_block in nest_ins:
+        shape = op.results[0].type.shape
+        n_el = float(np.prod(shape))
+        if name == "row_softmax":
+            block_shape = op.attrs["tiling"]["block"]
+            t_k = time_ms(lambda: generic.row_softmax(args[0],
+                                                      block=block_shape))
+            t_p = time_ms(lambda: refs.softmax(args[0], -1))
+            t_l = time_ms(lambda: torch.softmax(args[0], -1))
+            ops_n = 4.0 * n_el          # max, sub+exp, sum, scale
+        else:
+            block_shape = op.attrs["tiling"]["block"]
+            body = refs.region_ref(region)
+            t_k = time_ms(lambda: generic.block_map_region(
+                region, args, shape, "float32", block=block_shape))
+            t_p = time_ms(lambda: body(*args))
+            if len(region.ops) == 1 and region.ops[0].opname == "linalg.add":
+                t_l = time_ms(lambda: torch.add(*args))
+            else:
+                t_l = None     # no single torch call computes the chain
+            ops_n = n_el * sum(4.0 if s.opname in ("linalg.silu",
+                                                   "linalg.sigmoid")
+                               else 1.0 for s in region.ops)
+        bytes_n = 4.0 * n_el * (len(args) + 1)
+        b_ms, b_by = bound(bytes_n, ops_n)
+        print(f"  {name} {label}: {t_k:.4f} ms (plain {t_p:.4f}, library "
+              f"{'n/a' if t_l is None else f'{t_l:.4f}'}, bound "
+              f"{b_ms:.6f} by {b_by})", flush=True)
+        r = rows[name]
+        # the block's nests are the main path's at full width; the demo's
+        # row softmax is the only softmax on the path
+        if on_block or name == "row_softmax":
+            r["ms"] += t_k
+            r["plain_ms"] += t_p
+            r["library_ms"] = (None if (t_l is None or
+                                        r["library_ms"] is None)
+                               else r["library_ms"] + t_l)
+            r["ops"] += ops_n
+            r["bytes"] += bytes_n
+
+    # ---------------------------------------------------------------- 5
+    sources_of = {
+        "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+                   "src/repro/kernels/matmul.py:57"),
+        "block_map_region": ("src/repro_torch/kernels/csrc/block_map.cuh",
+                             "src/repro/kernels/generic.py:50"),
+        "row_softmax": ("src/repro_torch/kernels/csrc/row_softmax.cu",
+                        "src/repro/kernels/generic.py:50"),
+    }
+    kernels = []
+    for name in wrappers:
+        r = rows[name]
+        b_ms, b_by = bound(r["bytes"], r["ops"])
+        launches = demo_counts[name][0] + block_counts[name][0]
+        if launches == 0:
+            fail(f"{name} was never launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources_of[name][0],
+            "replaces": sources_of[name][1], "launches": launches,
+            "max_abs_err": worst[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": r["library_ms"]})
+    print(json.dumps({"block_ms": block_ms, "block_library_ms": block_lib_ms,
+                      "block_device_ms": block_dev_ms,
+                      "block_library_device_ms": block_lib_dev_ms,
+                      "block_launches": mod.launch_count,
+                      "demo_launches": demo_launches,
+                      "build_s": build_s, "tokens": T_TOKENS,
+                      "d_model": d, "d_ff": d_ff}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

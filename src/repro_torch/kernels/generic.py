@@ -1,0 +1,175 @@
+"""Mapped ``kokkos.*_parallel`` nests on the card — the port of the
+reference's ``kernels/generic.py`` (``block_map`` / ``block_map_region``).
+
+The map_parallelism pass binds a logical league/team/vector nest onto the
+H100 hierarchy (grid/block/warp) and picks ``tiling["block"]``.  Two
+kernels run the nests:
+
+* :func:`block_map_region` — a map nest, fused (a ``kokkos.fused`` region)
+  or not (a one-op region made by :func:`one_op_region`), as a CUDA kernel
+  generated from the region (``kernels/codegen.py``) around the
+  hand-written skeleton ``csrc/block_map.cuh``.  Generated libraries are
+  built by nvcc at first use and cached by the hash of their source.
+* :func:`row_softmax` — a ``kind='reduce'`` nest (last-axis softmax) on
+  the fixed ``csrc/row_softmax.cu``.
+
+Each wrapper runs its plain torch version when — and only when — its
+tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
+``launches`` and ``plain_calls`` on each wrapper count the two.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import refs
+from repro_torch.core.ir import Op, Region, Value
+from repro_torch.core.tracer import dtype_name, torch_dtype
+from repro_torch.kernels import _build, codegen
+
+
+def one_op_region(op: Op) -> Region:
+    """An unfused map nest as a one-op region: the nest's ``src`` opname
+    over fresh block arguments mirroring its operands (the nest's
+    ``fn`` is a torch closure, which no kernel can be made from)."""
+    src = op.attrs.get("src", "")
+    if src not in codegen.CPP_SCALAR:
+        raise NotImplementedError(
+            f"no generated kernel for an unfused {src!r} nest (its "
+            "lowered attrs do not carry what the C++ body needs)")
+    args = [Value(o.type) for o in op.operands]
+    sub = Op(src, args, [op.results[0].type])
+    return Region(inputs=args, ops=[sub], outputs=[sub.results[0]])
+
+
+def _tile(shape: tuple, block: tuple) -> tuple:
+    """(L, R, C) view of the iteration space and (bl, br, bc) tile."""
+    shape = tuple(shape) or (1,)
+    block = tuple(min(int(b), s) or 1 for b, s in zip(block or shape, shape))
+    padded = (1, 1) + shape
+    pblock = (1, 1) + block
+    L = math.prod(padded[:-2])
+    bl = math.prod(pblock[:-2])
+    return (L, padded[-2], padded[-1]), (bl, pblock[-2], pblock[-1])
+
+
+def _on_cpu(tensors: Sequence[torch.Tensor], what: str) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"}:
+        raise ValueError(f"{what}: operands on {sorted(kinds)}; the kernel "
+                         "takes CUDA tensors, the plain version CPU ones")
+    return False
+
+
+_REGION_LIBS: dict = {}     # (region, in dtypes, out dtype) -> CDLL
+
+
+def region_kernel(region, in_dtypes: Sequence[str],
+                  out_dtype: str) -> _build.KernelSource:
+    """The build record of the generated kernel for ``region``."""
+    return _build.KernelSource(
+        "region", codegen.kernel_source(region, in_dtypes, out_dtype))
+
+
+def block_map_region(region, args: Sequence[torch.Tensor], out_shape: tuple,
+                     out_dtype, *, block: tuple) -> torch.Tensor:
+    """Execute a whole region as ONE blocked kernel: block arguments bind
+    to the operands, every sub-op runs on values held in registers, and
+    only the yielded value is written out.  A chain of N fused
+    elementwise ops therefore costs one launch and no HBM round trips
+    for intermediates."""
+    out_dtype = torch_dtype(out_dtype)
+    args = list(args)
+    if _on_cpu(args, "block_map_region"):
+        block_map_region.plain_calls += 1
+        return refs.region_ref(region)(*args).to(out_dtype)
+    for a in args:
+        if tuple(a.shape) != tuple(out_shape):
+            raise ValueError(f"block_map_region: operand shape "
+                             f"{tuple(a.shape)} != iteration space "
+                             f"{tuple(out_shape)}")
+    args = [a.contiguous() for a in args]
+    key = (region, tuple(a.dtype for a in args), out_dtype)
+    lib = _REGION_LIBS.get(key)
+    if lib is None:
+        lib = _REGION_LIBS[key] = _build.load(region_kernel(
+            region, [dtype_name(a.dtype) for a in args],
+            dtype_name(out_dtype)))
+        lib.lapis_region_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_long, ctypes.c_long,
+            ctypes.c_long,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.lapis_region_launch.restype = ctypes.c_int
+    out = torch.empty(tuple(out_shape), dtype=out_dtype,
+                      device=args[0].device if args else "cuda")
+    (L, R, C), (bl, br, bc) = _tile(tuple(out_shape), tuple(block))
+    ptrs = (ctypes.c_void_p * (len(args) + 1))(
+        *[a.data_ptr() for a in args], out.data_ptr())
+    _build.check(lib.lapis_region_launch(
+        ptrs, L, R, C, bl, br, bc,
+        torch.cuda.current_stream(out.device).cuda_stream),
+        "block_map_region")
+    block_map_region.launches += 1
+    return out
+
+
+block_map_region.launches = 0
+block_map_region.plain_calls = 0
+
+
+_SOFTMAX_FNS = {torch.float32: "lapis_row_softmax_f32",
+                torch.bfloat16: "lapis_row_softmax_bf16"}
+_SOFTMAX_LAUNCHERS: dict = {}     # dtype -> ctypes function
+
+
+def softmax_kernel() -> _build.KernelSource:
+    """The build record of ``csrc/row_softmax.cu``."""
+    return _build.KernelSource("row_softmax", _build.csrc("row_softmax.cu"))
+
+
+def _softmax_launcher(dtype: torch.dtype):
+    fn = _SOFTMAX_LAUNCHERS.get(dtype)
+    if fn is None:
+        if dtype not in _SOFTMAX_FNS:
+            raise TypeError(f"row_softmax takes float32 or bfloat16, "
+                            f"not {dtype}")
+        fn = getattr(_build.load(softmax_kernel()), _SOFTMAX_FNS[dtype])
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SOFTMAX_LAUNCHERS[dtype] = fn
+    return fn
+
+
+def row_softmax(x: torch.Tensor, *, axis: int = -1,
+                block: tuple = ()) -> torch.Tensor:
+    """Softmax over the last axis, one thread block per row.  ``block``
+    is the nest's tiling; its last extent must hold whole rows (the
+    linalg_to_parallel pass admits rows of at most 1024)."""
+    if axis not in (-1, x.ndim - 1):
+        raise ValueError(f"row_softmax reduces the last axis, not {axis}")
+    if _on_cpu([x], "row_softmax"):
+        row_softmax.plain_calls += 1
+        return refs.softmax(x, -1)
+    cols = x.shape[-1] if x.ndim else 1
+    if block and block[-1] < cols:
+        raise ValueError(f"row_softmax: block {tuple(block)} splits rows "
+                         f"of {cols}")
+    fn = _softmax_launcher(x.dtype)
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    rows = x.numel() // max(cols, 1)
+    _build.check(fn(x.data_ptr(), y.data_ptr(), rows, cols,
+                    torch.cuda.current_stream(x.device).cuda_stream),
+                 "row_softmax")
+    row_softmax.launches += 1
+    return y
+
+
+row_softmax.launches = 0
+row_softmax.plain_calls = 0

@@ -1,0 +1,115 @@
+"""Kernel wrappers + registry registrations (the Kokkos Kernels surface).
+
+Each ``kk.*`` op ported so far gets two implementations:
+
+* ``torch`` — the plain version from ``ref.py`` (the "vendor library"
+              path: ``torch.matmul`` is cuBLAS on the card);
+* ``cuda``  — the hand-written kernel, differentiable through a
+              ``torch.autograd.Function`` whose forward is the kernel and
+              whose backward is derived from the plain version.
+
+The other ``kk.*`` ops of the reference register here with their kernels,
+slice by slice.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core.registry import register
+from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import ref
+
+
+# ---------------------------------------------------------------------------
+# autograd plumbing: kernel forward, plain-version backward
+# ---------------------------------------------------------------------------
+
+class _Kernelized(torch.autograd.Function):
+    """Forward runs ``kernel``; backward differentiates ``plain`` at the
+    saved inputs (a kernelized backward is later work, as in the
+    reference)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = [a.detach().requires_grad_(need) for a, need in
+                zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [a for a in args if a.requires_grad]
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, None, *(next(grads) if a.requires_grad else None
+                              for a in args))
+
+
+# ---------------------------------------------------------------------------
+# kk.gemm
+# ---------------------------------------------------------------------------
+
+@register("kk.gemm", "torch")
+def gemm_torch(a, b, *, tiling=None):
+    return ref.matmul(a, b)
+
+
+@register("kk.gemm", "cuda")
+def gemm_cuda(a, b, *, tiling=None):
+    return _Kernelized.apply(functools.partial(_mm.matmul, tiling=tiling),
+                             ref.matmul, a, b)
+
+
+# ---------------------------------------------------------------------------
+# kk.gemv — a gemv is a degenerate gemm: x becomes a one-column B
+# ---------------------------------------------------------------------------
+
+@register("kk.gemv", "torch")
+def gemv_torch(a, x, *, tiling=None):
+    return ref.gemv(a, x)
+
+
+def _gemv_kernel(a, x):
+    return _mm.matmul(a, x[:, None])[:, 0]
+
+
+@register("kk.gemv", "cuda")
+def gemv_cuda(a, x, *, tiling=None):
+    return _Kernelized.apply(_gemv_kernel, ref.gemv, a, x)
+
+
+# ---------------------------------------------------------------------------
+# ahead-of-time builds
+# ---------------------------------------------------------------------------
+
+def kernel_sources(graph) -> list:
+    """The kernel libraries a graph lowered for the ``cuda`` target
+    launches, so a caller can build them together (``_build.build_all``)
+    before the first call instead of one nvcc at a time."""
+    from repro_torch.core.ir import KOKKOS_PARALLEL_OPS, dtype_itemsize
+    from repro_torch.kernels import generic
+    out = []
+    for op in graph.ops:
+        if op.opname == "kk.gemm":
+            out.append(_mm.matmul_kernel(
+                *_mm.check_tiling(op.attrs["tiling"])))
+        elif op.opname == "kk.gemv":
+            a = op.operands[0].type
+            tiling = _mm.default_tiling(a.shape[0], 1, a.shape[1],
+                                        dtype_itemsize(a.dtype))
+            out.append(_mm.matmul_kernel(*_mm.check_tiling(tiling)))
+        elif op.opname in KOKKOS_PARALLEL_OPS and \
+                not op.attrs.get("collapse"):
+            if op.attrs["kind"] == "reduce":
+                out.append(generic.softmax_kernel())
+            else:
+                region = (op.regions[0] if op.regions
+                          else generic.one_op_region(op))
+                out.append(generic.region_kernel(
+                    region, [o.type.dtype for o in op.operands],
+                    op.results[0].type.dtype))
+    return out

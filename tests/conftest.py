@@ -18,3 +18,9 @@ def _isolated_tune_cache(tmp_path, monkeypatch):
     predicted_us in IR dumps and byte-pinned goldens machine-independent."""
     monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "repro-tune"))
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the torch port's kernels); "
+                   "skips where torch sees none")

@@ -1,0 +1,175 @@
+"""The port's compiler main path held to the JAX reference on the CPU.
+
+The same seeded numpy inputs and weights go through
+``repro.core.pipeline.compile`` (JAX) and ``repro_torch.core.pipeline
+.compile`` (torch, ``device="cpu"``, so every kernel wrapper runs its
+plain version): the IR after every pass, the outputs (1e-5 in f32) and
+the launch counts must agree.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import torch  # noqa: E402
+
+from repro.core import ops as jops  # noqa: E402
+from repro.core import pipeline as jpipe  # noqa: E402
+from repro.core.options import CompileOptions as JOptions  # noqa: E402
+from repro.models.mlp import apply_gated_mlp, gated_mlp_spec  # noqa: E402
+from repro.models.spec import init_params  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import pipeline as tpipe  # noqa: E402
+from repro_torch.core.options import CompileOptions as TOptions  # noqa: E402
+from repro_torch.core.tracer import TensorSpec  # noqa: E402
+from repro_torch.kernels import generic, matmul as tmm  # noqa: E402
+from repro_torch.models.mlp import gated_mlp_block  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+D, D_FF, T = 64, 128, 16
+
+
+def _ids_normalized(text: str) -> str:
+    """SSA value ids come from a process-wide counter in each package;
+    renumber them by first appearance so the two dumps compare."""
+    ids = {}
+    return re.sub(r"%(\d+)", lambda m: "%" + ids.setdefault(
+        m.group(1), f"v{len(ids)}"), text)
+
+
+def _ref_params():
+    p = init_params(gated_mlp_spec(D, D_FF), jax.random.PRNGKey(0))
+    return {k: np.asarray(jax.device_get(v)) for k, v in p.items()}
+
+
+def _ref_block(p):
+    def qwen2_mlp_block(x):
+        g = jops.silu(jops.matmul(x, p["w_gate"]))
+        u = jops.matmul(x, p["w_up"])
+        return jops.add(jops.matmul(jops.mul(g, u), p["w_down"]), x)
+    return qwen2_mlp_block
+
+
+def _port_block(p):
+    def qwen2_mlp_block(x):
+        return gated_mlp_block(p, x)
+    return qwen2_mlp_block
+
+
+def _x():
+    return np.random.default_rng(3).standard_normal((T, D)).astype(
+        np.float32)
+
+
+def _dump(compile_fn, fn, spec, options, capsys):
+    compile_fn(fn, spec, options=options)
+    return _ids_normalized(capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("case", ["mlp_demo", "qwen2_block"])
+def test_ir_after_every_pass_matches_reference_on_loops(case, capsys):
+    if case == "mlp_demo":
+        jfn, jspecs, _ = jpipe._demo_mlp()
+        tfn, tspecs, _ = tpipe._demo_mlp()
+        jspec, tspec = jspecs[0], tspecs[0]
+    else:
+        p = _ref_params()
+        jfn, tfn = _ref_block(p), _port_block(
+            convert.from_numpy_tree(p, "cpu"))
+        jspec = jax.ShapeDtypeStruct((T, D), "float32")
+        tspec = TensorSpec((T, D), "float32")
+    ref = _dump(jpipe.compile, jfn, jspec,
+                JOptions(target="loops", print_ir_after_all=True), capsys)
+    port = _dump(tpipe.compile, tfn, tspec,
+                 TOptions(target="loops", device="cpu",
+                          print_ir_after_all=True), capsys)
+    assert ref.count("// ----- IR after") == 7
+    assert port == ref
+
+
+def _reset_counts():
+    for w in (tmm.matmul, generic.block_map_region, generic.row_softmax):
+        w.launches = w.plain_calls = 0
+
+
+@pytest.mark.parametrize("ref_target", ["pallas", "xla"])
+def test_mlp_demo_matches_reference(ref_target):
+    jfn, jspecs, (ex,) = jpipe._demo_mlp()
+    tfn, tspecs, _ = tpipe._demo_mlp()
+    jmod = jpipe.compile(jfn, *jspecs, options=JOptions(
+        target=ref_target, interpret=True))
+    _reset_counts()
+    tmod = tpipe.compile(tfn, *tspecs,
+                         options=TOptions(target="cuda", device="cpu"))
+    want = np.asarray(jmod(ex))
+    got = tmod(ex).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert tmod.launch_count == jmod.launch_count == 4
+    # on the CPU every kernel wrapper took its plain version
+    assert (tmm.matmul.plain_calls, generic.block_map_region.plain_calls,
+            generic.row_softmax.plain_calls) == (2, 1, 1)
+    assert tmm.matmul.launches == generic.block_map_region.launches == 0
+
+
+@pytest.mark.parametrize("ref_target", ["pallas", "xla"])
+def test_reduced_qwen2_block_matches_reference(ref_target):
+    p = _ref_params()
+    x = _x()
+    jmod = jpipe.compile(_ref_block(p), jax.ShapeDtypeStruct((T, D),
+                                                             "float32"),
+                         options=JOptions(target=ref_target, interpret=True))
+    tmod = tpipe.compile(_port_block(convert.from_numpy_tree(p, "cpu")),
+                         TensorSpec((T, D), "float32"),
+                         options=TOptions(target="cuda", device="cpu"))
+    got = tmod(x).numpy()
+    np.testing.assert_allclose(got, np.asarray(jmod(x)), rtol=1e-5,
+                               atol=1e-5)
+    assert tmod.launch_count == jmod.launch_count == 5
+    # … and the block is the reference model's own gated MLP plus x
+    want = np.asarray(apply_gated_mlp(p, x) + x)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_block_launches_are_three_gemms_and_two_nests():
+    p = convert.from_numpy_tree(_ref_params(), "cpu")
+    mod = tpipe.compile(_port_block(p), TensorSpec((T, D), "float32"),
+                        options=TOptions(target="cuda", device="cpu"))
+    launched = [op for op in mod.graph.ops
+                if op.opname not in ("tensor.constant", "kokkos.sync",
+                                     "kokkos.modify")]
+    assert [op.opname for op in launched] == [
+        "kk.gemm", "kk.gemm", "kokkos.team_parallel", "kk.gemm",
+        "kokkos.team_parallel"]
+    fused, add = launched[2], launched[4]
+    assert fused.attrs["ops"] == ("linalg.silu", "linalg.mul")
+    assert add.attrs["src"] == "linalg.add" and not add.regions
+    assert all(not op.attrs.get("collapse") for op in launched)
+
+
+def test_cli_demo_prints_reference_line():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TUNE_CACHE=os.environ["REPRO_TUNE_CACHE"])
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.pipeline", "--demo", "mlp",
+         "--target", "cuda", "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == \
+        "output shape: (8, 10) sum: 8.0"
+
+
+def test_convert_carries_bf16_and_f32_leaves():
+    tree = {"w_up": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "nested": [np.asarray(jax.numpy.asarray(
+                [1.5, -2.0, 3.25], dtype=jax.numpy.bfloat16))]}
+    out = convert.from_numpy_tree(tree, "cpu")
+    assert out["w_up"].dtype == torch.float32
+    assert out["w_up"].tolist() == [[0, 1, 2], [3, 4, 5]]
+    bf = out["nested"][0]
+    assert isinstance(out["nested"], list) and bf.dtype == torch.bfloat16
+    assert bf.float().tolist() == [1.5, -2.0, 3.25]
