@@ -6,24 +6,43 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. print the card (``nvidia-smi``) and build every hand kernel of the
-   main path from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
+   main paths from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
    all builds started together;
 2. hold each kernel against its plain torch version on the card at the
-   shapes the main path gives it (mlp demo, ragged, gemv, and the
-   qwen2-1.5b MLP block at its published widths), with stated tolerances;
-3. run ``repro_torch.core.pipeline.main(["--demo", "mlp", "--target",
-   "cuda"])``: sum 8.0, 4 launches, no plain-version call;
+   shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
+   block at its published widths; SpMV and SpMM on the sparse test
+   matrices, one with trailing empty rows; the paged gather on the demo
+   shapes), with stated tolerances — the gather exactly;
+3. run ``repro_torch.core.pipeline.main(["--demo", d, "--target",
+   "cuda"])`` for mlp (sum 8.0, 4 launches), spmv (spmv + the relu
+   nest), paged (the gather) and paged_swap (no hand kernel: the copies
+   are library scatters), with no plain-version call, each against the
+   same demo compiled for ``target="torch"``;
 4. compile and run the qwen2-1.5b gated MLP block (d_model 1536, d_ff
    8960, silu, plus the residual) at T = 2048 tokens in f32 through
    ``pipeline.compile(..., target="cuda")``: 5 launches, no plain-version
    call, agreement with the plain block, and its time beside the same
    module compiled for the library (``target="torch"``);
-5. print the ``{"kernels": [...]}`` line, the card line again, and as the
+5. SpMV at the paper's Table 6.1 sizes: synthetic CSR matrices with the
+   published rows, mean and max nonzeros per row of StocF-1465,
+   PFlow_742, Elasticity3D and audikw_1 (Poisson row lengths, uniform
+   columns, as ``benchmarks/spmv_bench.py`` builds them, at full rows),
+   each compiled with ``ops.spmv_csr`` for ``target="cuda"``, held to the
+   plain CSR version and timed beside cuSPARSE
+   (``torch.sparse_csr_tensor @ x``); then SpMM of PFlow_742 by 16
+   dense columns beside ``torch.sparse.mm``;
+6. the paged decode step at qwen2-1.5b's KV widths (2 KV heads, head dim
+   128, block 16, f32), 64 slots × 4096 positions: ``page_append`` →
+   ``page_gather`` compiled for ``target="cuda"``, exactly equal to the
+   ``torch`` target, the gather timed beside ``index_select`` + permute;
+7. print the ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
+Every path is driven with the launch counts set to 0 just before it and
+read just after; a kernel's ``launches`` is the sum over the paths.
 Every time is measured here with CUDA events (one call per sample, L2
-flushed before each, median): kernel times are the device's alone, the
-block's call time also with the host's share; every bound is computed
+flushed before each, median): kernel times are the device's alone, a
+compiled call's time also with the host's share; every bound is computed
 here from this run's shapes and the H100 SXM data-sheet peaks below.
 """
 from __future__ import annotations
@@ -35,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,6 +65,15 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 T_TOKENS = 2048
+# paper Table 6.1: (matrix, rows, mean nonzeros per row, max per row)
+TABLE_6_1 = (("StocF-1465", 1_465_137, 14.34, 189),
+             ("PFlow_742", 742_793, 50.0, 137),
+             ("Elasticity3D", 648_000, 78.33, 81),
+             ("audikw_1", 943_695, 82.28, 345))
+SPMM_MATRIX, SPMM_COLS = "PFlow_742", 16   # a block Krylov solver's RHS
+# the paged step: qwen2-1.5b KV widths, serve.py's block size, 64 slots
+# of 4096 positions; block 0 of the pool is the scrap block
+KV_HEADS, HEAD_DIM, BLOCK, SLOTS, POSITIONS = 2, 128, 16, 64, 4096
 SAMPLES = 15
 SPIN_CYCLES = 2_000_000   # ~1 ms at the H100's clocks: covers the host's enqueue
 
@@ -68,6 +97,39 @@ def bound(bytes_moved: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def synth_csr(torch, n_rows: int, nnz_mean: float, nnz_max: int, gen):
+    """The recipe of benchmarks/spmv_bench.py (Poisson row lengths
+    clipped to [1, max], uniform columns, normal values), made on the
+    card: (indptr, indices, values) as int32, int32, f32."""
+    dev = gen.device
+    lens = torch.poisson(torch.full((n_rows,), nnz_mean, device=dev),
+                         generator=gen).clamp_(1, nnz_max).to(torch.int32)
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
+    nnz = int(indptr[-1])
+    cols = torch.randint(0, n_rows, (nnz,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return indptr, cols, torch.randn(nnz, generator=gen, device=dev)
+
+
+def small_matrices(np, rng) -> dict:
+    """The sparse test matrices as dense arrays: random, half the rows
+    empty, one dense row, and empty trailing rows."""
+    empty_rows = np.zeros((8, 6), np.float32)
+    empty_rows[1] = np.arange(1, 7)
+    empty_rows[4, 2], empty_rows[7, 5] = 3.0, -2.0
+    dense_row = np.zeros((16, 32), np.float32)
+    dense_row[3] = np.linspace(-1, 1, 32)
+    dense_row[0, 0], dense_row[9, 31] = 1.0, 5.0
+    trailing = np.where(rng.random((300, 64)) < 0.1,
+                        rng.standard_normal((300, 64)), 0.0)
+    trailing[250:] = 0.0
+    return {"random 100x80": np.where(rng.random((100, 80)) < 0.1,
+                                      rng.standard_normal((100, 80)), 0.0),
+            "empty-rows 8x6": empty_rows, "dense-row 16x32": dense_row,
+            "trailing-empty 300x64": trailing}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -77,12 +139,15 @@ def main() -> int:
 
     from repro_torch import convert
     from repro_torch.configs import get_config
-    from repro_torch.core import pipeline, refs
+    from repro_torch.core import ops, pipeline, refs
     from repro_torch.core.options import CompileOptions
     from repro_torch.core.tracer import TensorSpec
     from repro_torch.kernels import _build, generic, ref
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_kv as pk
+    from repro_torch.kernels import spmm as spmm_mod
+    from repro_torch.kernels import spmv as spmv_mod
     from repro_torch.models.mlp import gated_mlp_block
 
     # the plain versions are held to full f32 as well
@@ -91,7 +156,10 @@ def main() -> int:
     dev = "cuda"
     wrappers = {"matmul": mm.matmul,
                 "block_map_region": generic.block_map_region,
-                "row_softmax": generic.row_softmax}
+                "row_softmax": generic.row_softmax,
+                "spmv": spmv_mod.spmv, "spmm": spmm_mod.spmm_sparse,
+                "page_gather": pk.page_gather}
+    path_counts = {}     # path -> counts() read just after driving it
 
     def reset_counts() -> None:
         for w in wrappers.values():
@@ -159,6 +227,11 @@ def main() -> int:
     demo_fn, demo_specs, demo_example = pipeline._demo_mlp()
     demo_mod = pipeline.compile(demo_fn, *demo_specs,
                                 options=CompileOptions(target="cuda"))
+    slice2_demos = {d: pipeline._DEMOS[d]() for d in
+                    ("spmv", "paged", "paged_swap")}
+    slice2_mods = {d: pipeline.compile(fn, *specs,
+                                       options=CompileOptions(target="cuda"))
+                   for d, (fn, specs, _) in slice2_demos.items()}
 
     ragged = (127, 65, 129)
     gemv_mk = (1000, 777)
@@ -167,7 +240,11 @@ def main() -> int:
                + [mm.matmul_kernel(*mm.check_tiling(
                    mm.default_tiling(*ragged, 4))),
                   mm.matmul_kernel(*mm.check_tiling(
-                      mm.default_tiling(gemv_mk[0], 1, gemv_mk[1], 4)))])
+                      mm.default_tiling(gemv_mk[0], 1, gemv_mk[1], 4)))]
+               + [ks for m in slice2_mods.values()
+                  for ks in kops.kernel_sources(m.graph)]
+               + [spmv_mod.spmv_kernel(), spmm_mod.spmm_kernel(),
+                  pk.page_gather_kernel()])
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
     build_s = time.perf_counter() - t0
@@ -249,6 +326,33 @@ def main() -> int:
             nest_ins.append(("block_map_region", label, op, args, region,
                              on_block))
 
+    print("phase 2b: sparse and paged kernels vs plain versions", flush=True)
+    for label, dense in small_matrices(np, rng).items():
+        nz_r, nz_c = np.nonzero(dense)
+        indptr = np.zeros(dense.shape[0] + 1, np.int32)
+        np.cumsum(np.count_nonzero(dense, axis=1), out=indptr[1:])
+        a = spmv_mod.CsrMatrix(on_card(indptr), on_card(nz_c.astype(np.int32)),
+                               on_card(dense[nz_r, nz_c].astype(np.float32)),
+                               *dense.shape)
+        xv, bm = randn(dense.shape[1]), randn(dense.shape[1], SPMM_COLS)
+        compare("spmv", spmv_mod.spmv(a, xv), spmv_mod.spmv_reference(a, xv),
+                1e-5, f"spmv {label}")
+        compare("spmm", spmm_mod.spmm_sparse(a, bm),
+                spmv_mod.spmm_reference(a, bm), 1e-5,
+                f"spmm {label} x {SPMM_COLS}")
+    (demo_spmv,) = [op for op in slice2_mods["spmv"].graph.ops
+                    if op.opname == "kk.spmv"]
+    ip, ind, val, xv = (on_card(t) for t in slice2_demos["spmv"][2])
+    a = spmv_mod.CsrMatrix(ip, ind, val, xv.shape[0], xv.shape[0])
+    compare("spmv", spmv_mod.spmv(a, xv, tiling=demo_spmv.attrs["tiling"]),
+            spmv_mod.spmv_reference(a, xv), 1e-5,
+            f"spmv demo 512x512 tiling {demo_spmv.attrs['tiling']}")
+    pool, table, lengths, _ = (on_card(t) for t in slice2_demos["paged"][2])
+    compare("page_gather", pk.page_gather(pool, table, lengths, block_size=8),
+            pk.page_gather_torch(pool, table, lengths, block_size=8), 0.0,
+            f"page_gather demo pool {tuple(pool.shape)} table "
+            f"{tuple(table.shape)}")
+
     # ---------------------------------------------------------------- 3
     print("phase 3: --demo mlp --target cuda", flush=True)
     demo_launches = demo_mod.launch_count
@@ -277,13 +381,43 @@ def main() -> int:
         fail("demo did not run as 4 launches (2 matmul + 2 block_map) "
              "with no plain-version call")
 
+    path_counts["demo mlp"] = demo_counts
+    want_launches = {"spmv": {"spmv": 1, "block_map_region": 1},
+                     "paged": {"page_gather": 1}, "paged_swap": {}}
+    for demo, (fn, specs, example) in slice2_demos.items():
+        print(f"phase 3: --demo {demo} --target cuda", flush=True)
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = pipeline.main(["--demo", demo, "--target", "cuda"])
+        torch.cuda.synchronize()
+        c = path_counts[f"demo {demo}"] = counts()
+        out = buf.getvalue().strip()
+        launched = {n: l for n, (l, _) in c.items() if l}
+        print(f"  {out}; launches {launched}", flush=True)
+        if rc != 0:
+            fail(f"pipeline.main --demo {demo} returned {rc}")
+        if launched != want_launches[demo] or any(p for _, p in c.values()):
+            fail(f"demo {demo} launched {launched}, want "
+                 f"{want_launches[demo]}, with no plain-version call")
+        y_cuda = slice2_mods[demo](*example)
+        y_lib = pipeline.compile(fn, *specs, options=CompileOptions(
+            target="torch"))(*example)
+        torch.cuda.synchronize()
+        err = float((y_cuda - y_lib).abs().max())
+        limit = 1e-5 if demo == "spmv" else 0.0    # the paged ops are copies
+        print(f"  cuda vs torch target: max abs err {err:.3e} (limit "
+              f"{limit:.0e})", flush=True)
+        if err > limit or f"output shape: {tuple(y_lib.shape)}" not in out:
+            fail(f"demo {demo} disagrees with the torch target")
+
     # ---------------------------------------------------------------- 4
     print(f"phase 4: qwen2-1.5b gated MLP block, T={T_TOKENS}, f32",
           flush=True)
     reset_counts()
     y = mod(x)
     torch.cuda.synchronize()
-    block_counts = counts()
+    block_counts = path_counts["qwen2 block"] = counts()
     print(f"  launch_count {mod.launch_count}; launches {block_counts}",
           flush=True)
     if mod.launch_count != 5 or block_counts["matmul"] != (3, 0) or \
@@ -322,6 +456,14 @@ def main() -> int:
     rows = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                 "ops": 0.0, "bytes": 0.0}
             for n in wrappers}
+
+    def add_row(name, t_k, t_p, t_l, ops_n, bytes_n) -> None:
+        r = rows[name]
+        r["ms"] += t_k
+        r["plain_ms"] += t_p
+        r["library_ms"] += t_l
+        r["ops"] += ops_n
+        r["bytes"] += bytes_n
     for op in block_gemms:
         (m, k), (_, n) = (o.type.shape for o in op.operands)
         a, b, tiling = block_ins[(m, k, n)]
@@ -380,6 +522,159 @@ def main() -> int:
             r["bytes"] += bytes_n
 
     # ---------------------------------------------------------------- 5
+    print("phase 5: SpMV at Table 6.1 sizes (synthetic CSR, full rows)",
+          flush=True)
+    gen = torch.Generator(device=dev)
+    spmv_stats = []
+    for i, (name, n, mean, mx) in enumerate(TABLE_6_1):
+        gen.manual_seed(i)
+        ip, cols, vals = synth_csr(torch, n, mean, mx, gen)
+        nnz = int(vals.shape[0])
+        max_row = int((ip[1:] - ip[:-1]).max())
+        xv = torch.randn(n, generator=gen, device=dev)
+
+        def spmv_fn(ipv, indv, valv, x_, _n=n, _m=max_row):
+            return ops.spmv_csr(ipv, indv, valv, x_, n_rows=_n,
+                                max_nnz_row=_m)
+
+        smod = pipeline.compile(spmv_fn, ip, cols, vals, xv,
+                                options=CompileOptions(target="cuda"))
+        (op,) = [o for o in smod.graph.ops if o.opname == "kk.spmv"]
+        tiling = op.attrs["tiling"]
+        reset_counts()
+        y = smod(ip, cols, vals, xv)
+        torch.cuda.synchronize()
+        c = path_counts[f"spmv {name}"] = counts()
+        launched = {k: l for k, (l, _) in c.items() if l}
+        if launched != {"spmv": 1} or any(p for _, p in c.values()):
+            fail(f"spmv {name} launched {launched} with plain calls")
+        a = spmv_mod.CsrMatrix(ip, cols, vals, n, n)
+        compare("spmv", y, spmv_mod.spmv_reference(a, xv), 1e-4,
+                f"spmv {name} ({n} rows, nnz {nnz}, max/row {max_row})",
+                relative=True)
+        with warnings.catch_warnings():    # "beta" and invariant notes
+            warnings.simplefilter("ignore", UserWarning)
+            lib_a = torch.sparse_csr_tensor(ip, cols, vals, size=(n, n))
+        lib_err = float((torch.mv(lib_a, xv) - y).abs().max())
+        t_k = time_ms(lambda: spmv_mod.spmv(a, xv, tiling=tiling))
+        t_call = time_ms(lambda: smod(ip, cols, vals, xv), with_host=True)
+        t_p = time_ms(lambda: spmv_mod.spmv_reference(a, xv))
+        t_l = time_ms(lambda: torch.mv(lib_a, xv))
+        bytes_n = 8.0 * nnz + 8.0 * n + 4.0 * (n + 1)
+        b_ms, b_by = bound(bytes_n, 2.0 * nnz)
+        print(f"  spmv {name} tiling {tiling}: kernel {t_k:.4f} ms, call "
+              f"{t_call:.4f} ms (host incl.), plain {t_p:.4f}, cuSPARSE "
+              f"{t_l:.4f} (vs kernel {lib_err:.1e}), bound {b_ms:.4f} by "
+              f"{b_by} ({bytes_n / t_k / 1e6:.0f} GB/s)", flush=True)
+        add_row("spmv", t_k, t_p, t_l, 2.0 * nnz, bytes_n)
+        spmv_stats.append({"matrix": name, "rows": n, "nnz": nnz,
+                           "max_nnz_row": max_row, "tiling": tiling,
+                           "kernel_ms": t_k, "call_ms": t_call,
+                           "plain_ms": t_p, "cusparse_ms": t_l,
+                           "bound_ms": b_ms})
+        if name == SPMM_MATRIX:
+            spmm_in = (n, nnz, max_row, ip, cols, vals, a, lib_a)
+        del ip, cols, vals, xv, y, a, lib_a
+
+    n, nnz, max_row, ip, cols, vals, a, lib_a = spmm_in
+    del spmm_in
+    print(f"phase 5: SpMM {SPMM_MATRIX} x {SPMM_COLS} columns", flush=True)
+    bv = torch.randn((n, SPMM_COLS), generator=gen, device=dev)
+
+    def spmm_fn(ipv, indv, valv, b_, _n=n, _m=max_row):
+        return ops.spmm_csr(ipv, indv, valv, b_, n_rows=_n,
+                            max_nnz_row=_m)
+
+    mmod = pipeline.compile(spmm_fn, ip, cols, vals, bv,
+                            options=CompileOptions(target="cuda"))
+    (op,) = [o for o in mmod.graph.ops if o.opname == "kk.spmm"]
+    tiling = op.attrs["tiling"]
+    reset_counts()
+    yb = mmod(ip, cols, vals, bv)
+    torch.cuda.synchronize()
+    c = path_counts[f"spmm {SPMM_MATRIX}"] = counts()
+    launched = {k: l for k, (l, _) in c.items() if l}
+    if launched != {"spmm": 1} or any(p for _, p in c.values()):
+        fail(f"spmm launched {launched} with plain calls")
+    compare("spmm", yb, spmv_mod.spmm_reference(a, bv), 1e-4,
+            f"spmm {SPMM_MATRIX} x {SPMM_COLS}", relative=True)
+    t_k = time_ms(lambda: spmm_mod.spmm_sparse(a, bv, tiling=tiling))
+    t_call = time_ms(lambda: mmod(ip, cols, vals, bv), with_host=True)
+    t_p = time_ms(lambda: spmv_mod.spmm_reference(a, bv))
+    t_l = time_ms(lambda: torch.sparse.mm(lib_a, bv))
+    ops_n = 2.0 * nnz * SPMM_COLS
+    bytes_n = 8.0 * nnz + 4.0 * (n + 1) + 8.0 * n * SPMM_COLS
+    b_ms, b_by = bound(bytes_n, ops_n)
+    print(f"  spmm tiling {tiling}: kernel {t_k:.4f} ms, call "
+          f"{t_call:.4f} ms, plain {t_p:.4f}, torch.sparse.mm "
+          f"{t_l:.4f}, bound {b_ms:.4f} by {b_by}", flush=True)
+    add_row("spmm", t_k, t_p, t_l, ops_n, bytes_n)
+    spmm_stats = {"matrix": SPMM_MATRIX, "cols": SPMM_COLS, "tiling": tiling,
+                  "kernel_ms": t_k, "call_ms": t_call, "plain_ms": t_p,
+                  "library_ms": t_l, "bound_ms": b_ms}
+    del bv, yb, ip, cols, vals, a, lib_a
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 6
+    pages = POSITIONS // BLOCK
+    print(f"phase 6: paged step, {SLOTS} slots x {POSITIONS} positions, "
+          f"{KV_HEADS} KV heads x {HEAD_DIM}, block {BLOCK}, f32",
+          flush=True)
+    gen.manual_seed(100)
+    pool = torch.randn((SLOTS * pages + 1, KV_HEADS, BLOCK, HEAD_DIM),
+                       generator=gen, device=dev)
+    table = (torch.randperm(SLOTS * pages, generator=gen, device=dev) + 1) \
+        .to(torch.int32).view(SLOTS, pages)
+    lengths = torch.randint(0, POSITIONS, (SLOTS,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    kv = torch.randn((SLOTS, KV_HEADS, HEAD_DIM), generator=gen, device=dev)
+
+    def paged_step(p_, t_, l_, k_):
+        p2 = ops.page_append(p_, t_, l_, k_, block_size=BLOCK)
+        return ops.page_gather(p2, t_, l_, block_size=BLOCK)
+
+    pmod = pipeline.compile(paged_step, pool, table, lengths, kv,
+                            options=CompileOptions(target="cuda"))
+    pmod_lib = pipeline.compile(paged_step, pool, table, lengths, kv,
+                                options=CompileOptions(target="torch"))
+    reset_counts()
+    view = pmod(pool, table, lengths, kv)
+    torch.cuda.synchronize()
+    c = path_counts["paged step"] = counts()
+    launched = {k: l for k, (l, _) in c.items() if l}
+    if launched != {"page_gather": 1} or any(p for _, p in c.values()):
+        fail(f"paged step launched {launched} with plain calls")
+    compare("page_gather", view, pmod_lib(pool, table, lengths, kv), 0.0,
+            f"paged step {tuple(view.shape)} vs the torch target")
+    pool2 = pk.page_append_torch(pool, table, lengths, kv, block_size=BLOCK)
+    compare("page_gather",
+            pk.page_gather(pool2, table, lengths, block_size=BLOCK),
+            pk.page_gather_torch(pool2, table, lengths, block_size=BLOCK),
+            0.0, f"page_gather full width pool {tuple(pool2.shape)}")
+    t_k = time_ms(lambda: pk.page_gather(pool2, table, lengths,
+                                         block_size=BLOCK))
+    t_p = time_ms(lambda: pk.page_gather_torch(pool2, table, lengths,
+                                               block_size=BLOCK))
+    t_l = time_ms(lambda: pool2.index_select(0, table.view(-1)).view(
+        SLOTS, pages, KV_HEADS, BLOCK, HEAD_DIM).transpose(1, 2).reshape(
+        SLOTS, KV_HEADS, POSITIONS, HEAD_DIM))
+    t_step = time_ms(lambda: pmod(pool, table, lengths, kv), with_host=True)
+    t_step_lib = time_ms(lambda: pmod_lib(pool, table, lengths, kv),
+                         with_host=True)
+    bytes_n = 2.0 * view.numel() * view.element_size()
+    b_ms, b_by = bound(bytes_n, 0.0)
+    print(f"  page_gather: kernel {t_k:.4f} ms ({bytes_n / t_k / 1e6:.0f} "
+          f"GB/s), plain {t_p:.4f}, index_select+permute {t_l:.4f}, bound "
+          f"{b_ms:.4f} by {b_by}; step call {t_step:.4f} ms on cuda, "
+          f"{t_step_lib:.4f} on torch", flush=True)
+    add_row("page_gather", t_k, t_p, t_l, 0.0, bytes_n)
+    paged_stats = {"slots": SLOTS, "positions": POSITIONS,
+                   "pool_mb": pool.numel() * 4 / 1e6, "gather_ms": t_k,
+                   "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+                   "step_ms": t_step, "step_library_ms": t_step_lib}
+    del pool, pool2, view, table, lengths, kv
+
+    # ---------------------------------------------------------------- 7
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:57"),
@@ -387,14 +682,20 @@ def main() -> int:
                              "src/repro/kernels/generic.py:50"),
         "row_softmax": ("src/repro_torch/kernels/csrc/row_softmax.cu",
                         "src/repro/kernels/generic.py:50"),
+        "spmv": ("src/repro_torch/kernels/csrc/spmv.cu",
+                 "src/repro/kernels/spmv.py:121"),
+        "spmm": ("src/repro_torch/kernels/csrc/spmm.cu",
+                 "src/repro/kernels/spmm.py:57"),
+        "page_gather": ("src/repro_torch/kernels/csrc/page_gather.cu",
+                        "src/repro/kernels/paged_kv.py:139"),
     }
     kernels = []
     for name in wrappers:
         r = rows[name]
         b_ms, b_by = bound(r["bytes"], r["ops"])
-        launches = demo_counts[name][0] + block_counts[name][0]
+        launches = sum(c[name][0] for c in path_counts.values())
         if launches == 0:
-            fail(f"{name} was never launched on the main path")
+            fail(f"{name} was never launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": sources_of[name][0],
             "replaces": sources_of[name][1], "launches": launches,
@@ -407,7 +708,12 @@ def main() -> int:
                       "block_launches": mod.launch_count,
                       "demo_launches": demo_launches,
                       "build_s": build_s, "tokens": T_TOKENS,
-                      "d_model": d, "d_ff": d_ff}), flush=True)
+                      "d_model": d, "d_ff": d_ff, "spmv": spmv_stats,
+                      "spmm": spmm_stats, "paged": paged_stats,
+                      "launches_by_path": {
+                          p: {k: l for k, (l, _) in c.items() if l}
+                          for p, c in path_counts.items()}}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,7 @@ register_backend(Backend(
     name="torch",
     description="torch library path (torch.matmul → cuBLAS on the card; "
                 "linalg-to-kokkoskernels analogue)",
-    capabilities=frozenset({"library"}),
+    capabilities=frozenset({"library", "sparse"}),
     hierarchy=H100_HIERARCHY,    # same card; the library owns the mapping,
                                  # so map_parallelism collapses nests
     loader=_load_kernels,
@@ -44,7 +44,9 @@ register_backend(Backend(
     description="hand-written CUDA kernels for sm_90a (the pure-Kokkos "
                 "lowering path); the library serves only ops with no "
                 "kernel yet",
-    capabilities=frozenset({"custom-kernels", "loop-nests"}),
+    # no "ell-layout": the SpMV / SpMM kernels read CSR directly, so the
+    # sparsify pass inserts no per-call CSR→ELL sparse.convert
+    capabilities=frozenset({"custom-kernels", "loop-nests", "sparse"}),
     hierarchy=H100_HIERARCHY,    # nests map onto grid × block × warp
     fallbacks=("torch",),
     loader=_load_kernels,
@@ -54,7 +56,7 @@ register_backend(Backend(
     name="auto",
     description="per-op choice: hand kernels for kk.* ops when the module "
                 "runs on the card, the library otherwise",
-    capabilities=frozenset({"library"}),
+    capabilities=frozenset({"library", "sparse"}),
     hierarchy=H100_HIERARCHY,
     fallbacks=("torch",),
     loader=_load_kernels,

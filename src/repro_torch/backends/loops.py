@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.backend import (Backend, LevelSpec, ParallelHierarchy,
                                       register_backend, register_kernel)
+from repro_torch.kernels import paged_kv as _pk
 
 # The declared hierarchy: sequential host loops around a torch-vectorized
 # innermost level.  It is the reference's serial hierarchy, level names
@@ -110,11 +111,44 @@ def loops_executor(op, options):
     return None
 
 
+def _sparse_row_blocks(a, dense, reference, tiling, max_nnz_row):
+    """Shared generated-loops harness for the sparse ops: the §4.2 team
+    loop over ELL row blocks, with the *reference contraction* applied
+    per tile (one implementation of the math, blocked here).  Without a
+    static ELL width the sparsify pass inserts no conversion, and the
+    CSR operand runs the plain reference."""
+    from repro_torch.kernels.spmv import CsrMatrix, EllMatrix, as_ell
+    if isinstance(a, CsrMatrix) and max_nnz_row is None:
+        return reference(a, dense)
+    ell = as_ell(a, max_nnz_row=max_nnz_row)
+    rb = max(int((tiling or {}).get("row_block", 256)), 1)
+    n_rows = ell.values.shape[0]
+    # team loop over row blocks; a zero-row matrix is one empty block
+    return torch.cat([
+        reference(EllMatrix(ell.values[i0:i0 + rb], ell.indices[i0:i0 + rb],
+                            ell.valid[i0:i0 + rb], min(rb, n_rows - i0),
+                            ell.n_cols, ell.nnz_mean), dense)
+        for i0 in range(0, max(n_rows, 1), rb)])
+
+
+def spmv_loops(a, x, *, tiling=None, max_nnz_row=None):
+    """Generated-loops SpMV (the paper's TeamPolicy row loop)."""
+    from repro_torch.kernels.spmv import spmv_reference
+    return _sparse_row_blocks(a, x, spmv_reference, tiling, max_nnz_row)
+
+
+def spmm_loops(a, b, *, tiling=None, max_nnz_row=None):
+    """Generated-loops SpMM (row-block loop, reference tile contraction)."""
+    from repro_torch.kernels.spmv import spmm_reference
+    return _sparse_row_blocks(a, b, spmm_reference, tiling, max_nnz_row)
+
+
 register_backend(Backend(
     name="loops",
     description="eager-torch loop-nest interpreter (the paper's "
                 "generated-Kokkos-loops path; reference/baseline)",
-    capabilities=frozenset({"loop-nests", "reference"}),
+    capabilities=frozenset({"loop-nests", "reference", "sparse",
+                            "ell-layout"}),
     hierarchy=SERIAL_HIERARCHY,
     fallbacks=("torch",),
     op_executor=loops_executor,
@@ -122,3 +156,11 @@ register_backend(Backend(
 
 register_kernel("kk.gemm", "loops", gemm_loops)
 register_kernel("kk.gemv", "loops", gemv_loops)
+register_kernel("kk.spmv", "loops", spmv_loops)
+register_kernel("kk.spmm", "loops", spmm_loops)
+# registered here, with the backend, rather than by kernels/paged_kv.py:
+# a compile for `loops` must find them before any other backend's loader
+# has imported that module
+register_kernel("kokkos.page_gather", "loops", _pk.page_gather_loops)
+register_kernel("kokkos.page_append", "loops", _pk.page_append_loops)
+register_kernel("kokkos.page_copy", "loops", _pk.page_copy_loops)

@@ -67,22 +67,46 @@ def _op_callable(op: Op, options: CompileOptions) -> Optional[Callable]:
         ex = backend.op_executor(op, options)
         if ex is not None:
             return ex
+    if op.opname == "sparse.pack":
+        # assemble the composite sparse value the encoding describes
+        from repro_torch.kernels.spmv import CsrMatrix
+        n_rows, n_cols = op.results[0].type.shape
+        return lambda ip, ind, val: CsrMatrix(ip, ind, val, n_rows, n_cols)
+    if op.opname == "sparse.convert":
+        from repro_torch.kernels.spmv import as_ell
+        mx = op.attrs.get("max_nnz_row")
+        return lambda a, _mx=mx: as_ell(a, max_nnz_row=_mx)
     if op.opname == "kokkos.fused":
         # an unlowered fused region (e.g. mixed operand shapes kept it at
         # tensor level): interpret the structured body
         return refs.region_ref(op.regions[0])
     if op.opname.startswith("kk."):
-        tiling = op.attrs.get("tiling")
         fn = registry.dispatch(op.opname, options)
-        if tiling:
-            return lambda *a, _fn=fn, _t=tiling: _fn(*a, tiling=_t)
-        return fn
+        kwargs = _op_kwargs(op)
+        if op.attrs.get("tiling"):
+            kwargs["tiling"] = op.attrs["tiling"]
+        return lambda *a, _fn=fn, _kw=kwargs: _fn(*a, **_kw)
+    if op.opname in ("kokkos.page_gather", "kokkos.page_append",
+                     "kokkos.page_copy"):
+        # paged-KV cache plumbing dispatches through the registry like
+        # kk.* library calls; the nest/tiling attrs describe the mapped
+        # loop structure the backend implementation realizes
+        fn = registry.dispatch(op.opname, options)
+        bs = int(op.attrs["block_size"])
+        return lambda *a, _fn=fn, _bs=bs: _fn(*a, block_size=_bs)
     if op.opname in ("kokkos.range_parallel", "kokkos.team_parallel"):
         if op.attrs.get("collapse"):
             # library mapping: the whole nest is one eager torch call
             return op.attrs["fn"]
         return _parallel_callable(op, options)
     return None
+
+
+def _op_kwargs(op: Op) -> dict:
+    """Forward data-independent attrs that implementations accept."""
+    if op.opname in ("kk.spmv", "kk.spmm"):
+        return {"max_nnz_row": op.attrs.get("max_nnz_row")}
+    return {}
 
 
 def _as_input(x, device: str) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""The tensor-dialect op surface — repro's linalg-on-tensors builders
-(the dense part: elementwise, reductions, softmax, shape ops, constants
-and the matmul family).
+"""The tensor-dialect op surface — repro's linalg-on-tensors builders:
+elementwise, reductions, softmax, shape ops, constants, the matmul
+family, the CSR sparse products and the block-paged KV-cache ops.
 
 Every function here is dual-mode:
 
@@ -14,11 +14,15 @@ Every function here is dual-mode:
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
 from repro_torch.core import refs, tracer
-from repro_torch.core.tracer import emit, tracing
+from repro_torch.core.ir import SparseEncoding, TensorType
+from repro_torch.core.tracer import as_traced, emit, tracing
 
 
 # ---------------------------------------------------------------------------
@@ -199,3 +203,259 @@ def dot(a, b):
     if tracing():
         return emit("linalg.dot", [a, b], refs.dot)
     return refs.dot(a, b)
+
+
+# ---------------------------------------------------------------------------
+# eager calls of the sparse and paged ops compile their one-op graph
+# ---------------------------------------------------------------------------
+
+_PIPELINE_CACHE: dict = {}
+
+
+def _via_pipeline(opname: str, builder, arrays: tuple, kwargs: dict):
+    """Eager execution = compile the one-op graph through the full
+    pipeline for the ambient options (memoized on shapes, statistics and
+    options) and run it: the no-bypass rule of the sparse and paged ops.
+    Every options field affects compilation (tiling heuristics read the
+    hierarchy override, the PassManager reads verify_ir, the device
+    decides where the module runs), so the key holds the whole record."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.options import current_options
+    options = current_options()
+    specs = tuple(tracer.TensorSpec.of(a) for a in arrays)
+    key = (opname, specs, tuple(sorted(kwargs.items())),
+           dataclasses.astuple(options))
+    mod = _PIPELINE_CACHE.get(key)
+    if mod is None:
+        def one_op(*args):
+            return builder(*args, **kwargs)
+
+        mod = pipeline.compile(one_op, *specs, options=options,
+                               name=opname.replace(".", "_"))
+        _PIPELINE_CACHE[key] = mod
+    return mod(*arrays)
+
+
+# ---------------------------------------------------------------------------
+# sparse linear algebra (linalg.*_csr — lowered by the `sparsify` pass)
+#
+# Sparse ops never bypass the pipeline: tracing emits a composite
+# sparse-encoded value (sparse.pack) feeding a linalg.* op, and the eager
+# mode compiles exactly that graph — the paper's
+# `--sparse-compiler-kokkos` stage, not a kernel-table shortcut.
+# ---------------------------------------------------------------------------
+
+def _csr_stats(indptr, values, n_rows: int, nnz_mean, max_nnz_row):
+    """Fill the per-matrix statistics (paper Table 6.1) the caller did
+    not supply from the concrete CSR arrays."""
+    nnz = int(values.shape[0])
+    if nnz_mean is None:
+        nnz_mean = nnz / max(n_rows, 1)
+    if max_nnz_row is None:
+        ip = torch.as_tensor(indptr)
+        max_nnz_row = int((ip[1:] - ip[:-1]).max()) if n_rows else 0
+    return nnz, float(nnz_mean), max_nnz_row
+
+
+def _emit_sparse(opname: str, csr, dense, *, n_rows: int, n_cols: int,
+                 out_shape: tuple, nnz_mean, max_nnz_row):
+    indptr, indices, values = [as_traced(c) for c in csr]
+    dense = as_traced(dense)
+    nnz = int(values.shape[0])
+    enc = SparseEncoding(
+        format="csr", nnz=nnz,
+        nnz_mean=float(nnz_mean) if nnz_mean is not None
+        else nnz / max(n_rows, 1),
+        max_nnz_row=max_nnz_row)
+    a_type = TensorType((n_rows, n_cols), values.value.type.dtype,
+                        encoding=enc)
+    a = tracer.emit_op("sparse.pack", [indptr, indices, values], [a_type],
+                       attrs={"format": "csr"})
+    out_dtype = tracer.dtype_name(
+        torch.promote_types(values.dtype, dense.dtype))
+    return tracer.emit_op(
+        opname, [a, dense], [TensorType(out_shape, out_dtype)],
+        attrs={"n_rows": n_rows, "nnz_mean": enc.nnz_mean,
+               "max_nnz_row": max_nnz_row})
+
+
+def spmv_csr(indptr, indices, values, x, *, n_rows: int,
+             nnz_mean: Optional[float] = None,
+             max_nnz_row: Optional[int] = None):
+    """CSR sparse matrix-vector product y = A @ x.
+
+    ``nnz_mean`` feeds the paper's vector-length heuristic (§4.2) and
+    ``max_nnz_row`` the static ELL width of ell-layout backends (Table
+    6.1); both are derived from the data when concrete arrays arrive
+    eagerly.
+    """
+    if tracing():
+        return _emit_sparse("linalg.spmv_csr", (indptr, indices, values), x,
+                            n_rows=n_rows, n_cols=int(x.shape[0]),
+                            out_shape=(n_rows,), nnz_mean=nnz_mean,
+                            max_nnz_row=max_nnz_row)
+    _, nnz_mean, max_nnz_row = _csr_stats(indptr, values, n_rows,
+                                          nnz_mean, max_nnz_row)
+    return _via_pipeline(
+        "linalg.spmv_csr", spmv_csr, (indptr, indices, values, x),
+        {"n_rows": n_rows, "nnz_mean": nnz_mean,
+         "max_nnz_row": max_nnz_row})
+
+
+def spmm_csr(indptr, indices, values, b, *, n_rows: int,
+             nnz_mean: Optional[float] = None,
+             max_nnz_row: Optional[int] = None):
+    """CSR sparse matrix × dense matrix product Y = A @ B
+    (B: (n_cols, n))."""
+    if tracing():
+        return _emit_sparse("linalg.spmm_csr", (indptr, indices, values), b,
+                            n_rows=n_rows, n_cols=int(b.shape[0]),
+                            out_shape=(n_rows, int(b.shape[1])),
+                            nnz_mean=nnz_mean, max_nnz_row=max_nnz_row)
+    _, nnz_mean, max_nnz_row = _csr_stats(indptr, values, n_rows,
+                                          nnz_mean, max_nnz_row)
+    return _via_pipeline(
+        "linalg.spmm_csr", spmm_csr, (indptr, indices, values, b),
+        {"n_rows": n_rows, "nnz_mean": nnz_mean,
+         "max_nnz_row": max_nnz_row})
+
+
+# ---------------------------------------------------------------------------
+# block-paged KV cache (paged.* — lowered by the `paged_to_kokkos` pass)
+#
+# The serving engine's cache plumbing goes through the pipeline like every
+# other kernel: tracing emits backend-neutral paged.* ops (a shared block
+# pool, a per-slot page table, per-slot lengths), `paged_to_kokkos` lowers
+# them to kokkos.page_* ops with a logical nest + level map +
+# SCRATCH-typed staging, and the emitter dispatches them through the
+# backend kernel table.  Eager calls compile exactly that one-op graph,
+# memoized — the same no-bypass discipline as the sparse ops above.
+# Every op is functional: append and copy return a new pool.
+# ---------------------------------------------------------------------------
+
+def _page_gather_ref(block_size: int):
+    def ref(pool, table, lengths):
+        n_slots, blocks_per_slot = table.shape
+        g = refs.take(pool, table.reshape(-1), 0)
+        g = g.reshape((n_slots, blocks_per_slot) + tuple(pool.shape[1:]))
+        g = g.movedim(1, 2)                 # (S, H, MB, bs, d)
+        return g.reshape(n_slots, pool.shape[1],
+                         blocks_per_slot * pool.shape[2], pool.shape[3])
+    return ref
+
+
+def _page_append_ref(block_size: int):
+    def ref(pool, table, lengths, kv):
+        rows = torch.arange(table.shape[0], device=table.device)
+        lengths = lengths.to(torch.int64)
+        blk = table[rows, lengths // block_size].to(torch.int64)
+        out = pool.clone()
+        out[blk, :, lengths % block_size, :] = kv.to(pool.dtype)
+        return out
+    return ref
+
+
+def _page_copy_ref(block_size: int):
+    def ref(dst, src, src_ids, dst_ids):
+        # the block axis sits 4 from the end: (n_blocks, H, bs, hd) for a
+        # single arena, (L, n_blocks, H, bs, hd) for layer-stacked arenas
+        axis = dst.ndim - 4
+        taken = refs.take(src, src_ids, axis).to(dst.dtype)
+        out = dst.clone()
+        out[(slice(None),) * axis + (dst_ids.to(torch.int64),)] = taken
+        return out
+    return ref
+
+
+def page_gather(pool, table, lengths, *, block_size: int):
+    """Gather a slot-contiguous KV view from a block-paged pool.
+
+    ``pool``: (n_blocks, heads, block_size, head_dim) shared block pool;
+    ``table``: (n_slots, blocks_per_slot) int32 page table (block ids);
+    ``lengths``: (n_slots,) int32 valid prefix per slot.  Returns
+    (n_slots, heads, blocks_per_slot*block_size, head_dim); positions at
+    or past ``lengths`` are stale pool contents the consumer must mask.
+    """
+    block_size = int(block_size)
+    ref = _page_gather_ref(block_size)
+    if tracing():
+        return emit("paged.gather", [pool, table, lengths], ref,
+                    attrs={"block_size": block_size})
+    return _via_pipeline("paged.gather", page_gather, (pool, table, lengths),
+                         {"block_size": block_size})
+
+
+def page_append(pool, table, lengths, kv, *, block_size: int,
+                shared_block_ids=()):
+    """Append one token's KV per slot into the paged pool.
+
+    ``kv``: (n_slots, heads, head_dim) written at each slot's position
+    ``lengths[s]`` — block ``table[s, lengths[s] // block_size]``, offset
+    ``lengths[s] % block_size``.  Returns the updated pool (functional,
+    like every tensor op).
+
+    ``shared_block_ids`` (static) declares which target blocks are
+    refcount-shared (rc > 1) in the allocator at trace time; the
+    ``check_paged_alias`` analysis rejects an append whose declared
+    shared target was not forked first (copy-on-write).
+    """
+    block_size = int(block_size)
+    ref = _page_append_ref(block_size)
+    attrs = {"block_size": block_size}
+    if shared_block_ids:
+        attrs["shared_block_ids"] = tuple(int(b) for b in shared_block_ids)
+    if tracing():
+        return emit("paged.append", [pool, table, lengths, kv], ref,
+                    attrs=attrs)
+    return _via_pipeline("paged.append", page_append,
+                         (pool, table, lengths, kv), dict(attrs))
+
+
+def _paged_copy_like(opname: str, builder, dst, src, src_ids, dst_ids,
+                     block_size: int, extra_attrs: dict):
+    block_size = int(block_size)
+    ref = _page_copy_ref(block_size)
+    attrs = {"block_size": block_size, **extra_attrs}
+    if tracing():
+        return emit(opname, [dst, src, src_ids, dst_ids], ref, attrs=attrs)
+    return _via_pipeline(opname, builder, (dst, src, src_ids, dst_ids),
+                         dict(attrs))
+
+
+def page_copy(dst, src, src_ids, dst_ids, *, block_size: int,
+              shared_block_ids=(), fork_block_ids=()):
+    """Block-granular arena copy: ``dst[dst_ids[i]] = src[src_ids[i]]``.
+
+    ``dst``/``src`` are block arenas — ``(n_blocks, heads, block_size,
+    head_dim)`` or layer-stacked ``(L, n_blocks, ...)`` — and may be the
+    *same* tensor: the serving engine's copy-on-write fork duplicates a
+    refcount-shared block inside one pool.  Functional.
+
+    The static alias declarations carry the allocator's refcount state
+    into IR for ``check_paged_alias``: ``fork_block_ids`` names the
+    shared source blocks this copy privatizes, ``shared_block_ids`` any
+    still-shared blocks among the *destinations* (an error unless
+    previously forked)."""
+    extra = {}
+    if shared_block_ids:
+        extra["shared_block_ids"] = tuple(int(b) for b in shared_block_ids)
+    if fork_block_ids:
+        extra["fork_block_ids"] = tuple(int(b) for b in fork_block_ids)
+    return _paged_copy_like("paged.copy", page_copy, dst, src, src_ids,
+                            dst_ids, block_size, extra)
+
+
+def page_swap_out(swap, pool, src_ids, dst_ids, *, block_size: int):
+    """Evict blocks from the device pool into the swap arena
+    (``swap[dst_ids[i]] = pool[src_ids[i]]``) — the preemption tier's
+    save path.  Returns the updated swap arena."""
+    return _paged_copy_like("paged.swap_out", page_swap_out, swap, pool,
+                            src_ids, dst_ids, block_size, {})
+
+
+def page_swap_in(pool, swap, src_ids, dst_ids, *, block_size: int):
+    """Restore swapped blocks into freshly allocated pool blocks
+    (``pool[dst_ids[i]] = swap[src_ids[i]]``).  Returns the updated
+    pool."""
+    return _paged_copy_like("paged.swap_in", page_swap_in, pool, swap,
+                            src_ids, dst_ids, block_size, {})

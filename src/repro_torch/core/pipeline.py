@@ -14,7 +14,7 @@ CLI (the lapis-opt half, plus running the result)::
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import emitter, passes, tracer
@@ -62,17 +62,19 @@ def lapis_translate(graph: Graph,
 
 def compile(fn: Callable, *arg_specs,
             options: Optional[CompileOptions] = None,
-            name: Optional[str] = None) -> CompiledModule:
+            name: Optional[str] = None,
+            encodings: Optional[Sequence] = None) -> CompiledModule:
     """Trace → lower → build.  ``arg_specs`` are :class:`~repro_torch.
     core.tracer.TensorSpec`\\ s, or tensors / arrays whose shapes and
-    dtypes are taken (the paper's compile-with-concrete-tensors mode).
-    Runs on the card unless ``options.device == "cpu"``; a ``"cuda"``
-    request without a card raises before anything is traced."""
+    dtypes are taken (the paper's compile-with-concrete-tensors mode);
+    ``encodings`` put a ``SparseEncoding`` on argument types.  Runs on
+    the card unless ``options.device == "cpu"``; a ``"cuda"`` request
+    without a card raises before anything is traced."""
     options = options or current_options()
     options.resolve_device()
     specs = [tracer.TensorSpec.of(a) for a in arg_specs]
     with use_options(options):
-        graph = tracer.trace(fn, *specs, name=name)
+        graph = tracer.trace(fn, *specs, name=name, encodings=encodings)
         lapis_opt(graph, options)
         call = lapis_translate(graph, options)
     return CompiledModule(graph=graph, options=options, _callable=call)
@@ -105,18 +107,120 @@ def _demo_mlp():
     return mlp, (x,), (ex,)
 
 
-_DEMOS = {"mlp": _demo_mlp}
+def _demo_spmv():
+    """The paper's headline sparse demo: y = relu(A @ x) with A a CSR
+    matrix carried as one sparse-encoded composite value and lowered by
+    the `sparsify` pass (`lapis-opt --sparse-compiler-kokkos`)."""
+    import numpy as np
+
+    from repro_torch.core import ops
+    rng = np.random.default_rng(0)
+    n, nnz_mean = 512, 12
+    lens = np.maximum(rng.poisson(nnz_mean, n), 1).astype(np.int32)
+    indptr = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=indptr[1:])
+    nnz = int(indptr[-1])
+    max_nnz_row = int(lens.max())
+
+    def spmv(ip, ind, val, x):
+        return ops.relu(ops.spmv_csr(ip, ind, val, x, n_rows=n,
+                                     max_nnz_row=max_nnz_row))
+
+    specs = (tracer.TensorSpec((n + 1,), "int32"),
+             tracer.TensorSpec((nnz,), "int32"),
+             tracer.TensorSpec((nnz,), "float32"),
+             tracer.TensorSpec((n,), "float32"))
+    example = (indptr,
+               rng.integers(0, n, nnz).astype(np.int32),
+               rng.standard_normal(nnz).astype(np.float32),
+               rng.standard_normal(n).astype(np.float32))
+    return spmv, specs, example
+
+
+def _demo_paged():
+    """The serving engine's paged decode-step cache plumbing: append one
+    new KV position per slot into its page-table tail block, then gather
+    each slot's contiguous view from the shared pool (lowered by the
+    `paged_to_kokkos` pass — the IR dump shows kokkos.page_append /
+    kokkos.page_gather with a #scratch-typed block pool)."""
+    import numpy as np
+
+    from repro_torch.core import ops
+    rng = np.random.default_rng(0)
+    n_blocks, heads, bs, hd, n_slots, mb = 17, 2, 8, 16, 4, 4
+
+    def paged_step(pool, table, lengths, kv):
+        pool2 = ops.page_append(pool, table, lengths, kv, block_size=bs)
+        return ops.page_gather(pool2, table, lengths, block_size=bs)
+
+    specs = (tracer.TensorSpec((n_blocks, heads, bs, hd), "float32"),
+             tracer.TensorSpec((n_slots, mb), "int32"),
+             tracer.TensorSpec((n_slots,), "int32"),
+             tracer.TensorSpec((n_slots, heads, hd), "float32"))
+    example = (rng.standard_normal((n_blocks, heads, bs, hd))
+               .astype(np.float32),
+               rng.integers(1, n_blocks, (n_slots, mb)).astype(np.int32),
+               np.array([5, 0, 17, 30], np.int32),
+               rng.standard_normal((n_slots, heads, hd)).astype(np.float32))
+    return paged_step, specs, example
+
+
+def _demo_paged_swap():
+    """The serving engine's preemption/swap tier: evict a preempted
+    request's blocks into the host-side swap arena (paged.swap_out), then
+    restore them into freshly allocated pool blocks (paged.swap_in) —
+    both lowered by `paged_to_kokkos` to kokkos.page_copy nests whose
+    `direction` attr records the engine path."""
+    import numpy as np
+
+    from repro_torch.core import ops
+    rng = np.random.default_rng(0)
+    n_blocks, n_swap, heads, bs, hd = 9, 5, 2, 8, 16
+
+    def swap_round_trip(pool, swap, pool_ids, swap_ids, fresh_ids):
+        swap2 = ops.page_swap_out(swap, pool, pool_ids, swap_ids,
+                                  block_size=bs)
+        return ops.page_swap_in(pool, swap2, swap_ids, fresh_ids,
+                                block_size=bs)
+
+    specs = (tracer.TensorSpec((n_blocks, heads, bs, hd), "float32"),
+             tracer.TensorSpec((n_swap, heads, bs, hd), "float32"),
+             tracer.TensorSpec((3,), "int32"),
+             tracer.TensorSpec((3,), "int32"),
+             tracer.TensorSpec((3,), "int32"))
+    example = (rng.standard_normal((n_blocks, heads, bs, hd))
+               .astype(np.float32),
+               np.zeros((n_swap, heads, bs, hd), np.float32),
+               np.array([2, 5, 7], np.int32),
+               np.array([1, 2, 3], np.int32),
+               np.array([4, 6, 8], np.int32))
+    return swap_round_trip, specs, example
+
+
+_DEMOS = {"mlp": _demo_mlp, "spmv": _demo_spmv, "paged": _demo_paged,
+          "paged_swap": _demo_paged_swap}
 
 
 _CLI_EPILOG = """\
 the demos (--demo):
   mlp    dense 2-layer MLP: matmul -> fused bias+relu region -> matmul ->
          softmax (shows kokkos.fused, TeamPolicy nests, DualView syncs)
+  spmv   y = relu(A @ x), A a CSR sparse composite value (shows
+         sparse.pack, CSR->ELL sparse.convert on ell-layout backends,
+         the kk.spmv row-loop kernel)
+  paged  serving-engine paged KV-cache step: page_append then page_gather
+         over a shared block pool (shows kokkos.page_* ops with nest/
+         level_map/tiling attrs and the #scratch-typed pool)
+  paged_swap  the engine's preemption/swap tier: swap_out to the swap
+         arena then swap_in to fresh pool blocks, both lowered to
+         kokkos.page_copy with a direction attr
 
 examples:
   python -m repro_torch.core.pipeline --demo mlp --target cuda
-  python -m repro_torch.core.pipeline --demo mlp --target cuda --device cpu
-  python -m repro_torch.core.pipeline --demo mlp --print-ir-after-all
+  python -m repro_torch.core.pipeline --demo spmv --target cuda --device cpu
+  python -m repro_torch.core.pipeline --demo paged --target loops \\
+      --device cpu --print-ir-after-all
+  python -m repro_torch.core.pipeline --demo paged_swap --analyze --device cpu
 """
 
 

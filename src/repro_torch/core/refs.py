@@ -183,6 +183,22 @@ def op_ref(opname: str, attrs: dict) -> Callable:
         return lambda a: pad(a, attrs["pads"], attrs.get("value", 0.0))
     if opname == "tensor.gather":
         return lambda a, i: take(a, i, attrs.get("axis", 0))
+    if opname in ("linalg.spmv_csr", "kk.spmv"):
+        from repro_torch.kernels.spmv import spmv_reference
+        return spmv_reference
+    if opname in ("linalg.spmm_csr", "kk.spmm"):
+        from repro_torch.kernels.spmv import spmm_reference
+        return spmm_reference
+    if opname in ("paged.gather", "kokkos.page_gather"):
+        from repro_torch.core.ops import _page_gather_ref
+        return _page_gather_ref(attrs["block_size"])
+    if opname in ("paged.append", "kokkos.page_append"):
+        from repro_torch.core.ops import _page_append_ref
+        return _page_append_ref(attrs["block_size"])
+    if opname in ("paged.copy", "paged.swap_in", "paged.swap_out",
+                  "kokkos.page_copy"):
+        from repro_torch.core.ops import _page_copy_ref
+        return _page_copy_ref(attrs["block_size"])
     if opname in ("linalg.map",):
         return attrs["fn"]
     raise KeyError(f"no reference semantics for {opname}")

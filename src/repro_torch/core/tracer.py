@@ -200,14 +200,32 @@ def emit(opname: str, inputs: Sequence, ref: Callable,
     return results[0] if n_results == 1 else tuple(results)
 
 
-def trace(fn: Callable, *arg_specs, name: Optional[str] = None) -> Graph:
+def emit_op(opname: str, inputs: Sequence, result_types: Sequence,
+            attrs: Optional[dict] = None):
+    """Record one op with *explicit* result types — for ops whose
+    semantics no meta-tensor run can infer (composite sparse values have
+    no tensor form).  Returns one TracedValue or a tuple."""
+    ctx = current_trace()
+    assert ctx is not None, "emit_op() outside of a trace"
+    traced = [as_traced(x) for x in inputs]
+    op = ctx.graph.add(
+        Op(opname, [t.value for t in traced], list(result_types),
+           attrs=attrs))
+    results = [TracedValue(r) for r in op.results]
+    return results[0] if len(results) == 1 else tuple(results)
+
+
+def trace(fn: Callable, *arg_specs, name: Optional[str] = None,
+          encodings: Optional[Sequence] = None) -> Graph:
     """Trace ``fn`` over specs (anything with ``.shape``/``.dtype``) into
-    a Graph."""
+    a Graph; ``encodings[i]``, where given, puts a ``SparseEncoding`` on
+    argument ``i``'s type."""
     ctx = TraceContext(name or getattr(fn, "__name__", "main"))
     args = []
     for i, spec in enumerate(arg_specs):
+        enc = encodings[i] if encodings else None
         t = TensorType(tuple(spec.shape), dtype_name(spec.dtype),
-                       MemorySpace.ANY)
+                       MemorySpace.ANY, enc)
         v = Value(t, name=f"arg{i}")
         ctx.graph.inputs.append(v)
         args.append(TracedValue(v))

@@ -116,6 +116,20 @@ def load(ks: KernelSource) -> ctypes.CDLL:
     return lib
 
 
+def on_cpu(tensors: Sequence, what: str) -> bool:
+    """True iff every tensor lies on the CPU, where a wrapper runs its
+    plain version; False iff all lie on the card, where it launches its
+    kernel.  Any other device, or a mix, raises: a kernel's plain version
+    never stands in for it off the CPU."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"}:
+        raise ValueError(f"{what}: operands on {sorted(kinds)}; the kernel "
+                         "takes CUDA tensors, the plain version CPU ones")
+    return False
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a launcher's nonzero ``cudaError_t``: a refused launch
     never runs, and a later synchronize would not report it."""

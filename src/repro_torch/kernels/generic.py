@@ -56,16 +56,6 @@ def _tile(shape: tuple, block: tuple) -> tuple:
     return (L, padded[-2], padded[-1]), (bl, pblock[-2], pblock[-1])
 
 
-def _on_cpu(tensors: Sequence[torch.Tensor], what: str) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"}:
-        raise ValueError(f"{what}: operands on {sorted(kinds)}; the kernel "
-                         "takes CUDA tensors, the plain version CPU ones")
-    return False
-
-
 _REGION_LIBS: dict = {}     # (region, in dtypes, out dtype) -> CDLL
 
 
@@ -85,7 +75,7 @@ def block_map_region(region, args: Sequence[torch.Tensor], out_shape: tuple,
     for intermediates."""
     out_dtype = torch_dtype(out_dtype)
     args = list(args)
-    if _on_cpu(args, "block_map_region"):
+    if _build.on_cpu(args, "block_map_region"):
         block_map_region.plain_calls += 1
         return refs.region_ref(region)(*args).to(out_dtype)
     for a in args:
@@ -153,7 +143,7 @@ def row_softmax(x: torch.Tensor, *, axis: int = -1,
     linalg_to_parallel pass admits rows of at most 1024)."""
     if axis not in (-1, x.ndim - 1):
         raise ValueError(f"row_softmax reduces the last axis, not {axis}")
-    if _on_cpu([x], "row_softmax"):
+    if _build.on_cpu([x], "row_softmax"):
         row_softmax.plain_calls += 1
         return refs.softmax(x, -1)
     cols = x.shape[-1] if x.ndim else 1

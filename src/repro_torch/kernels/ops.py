@@ -1,6 +1,7 @@
 """Kernel wrappers + registry registrations (the Kokkos Kernels surface).
 
-Each ``kk.*`` op ported so far gets two implementations:
+Each ``kk.*`` op ported so far gets two implementations (the
+``kokkos.page_*`` ops register in ``paged_kv``, imported here):
 
 * ``torch`` — the plain version from ``ref.py`` (the "vendor library"
               path: ``torch.matmul`` is cuBLAS on the card);
@@ -8,8 +9,13 @@ Each ``kk.*`` op ported so far gets two implementations:
               ``torch.autograd.Function`` whose forward is the kernel and
               whose backward is derived from the plain version.
 
-The other ``kk.*`` ops of the reference register here with their kernels,
-slice by slice.
+The sparse ``kk.spmv`` / ``kk.spmm`` take the composite value
+``sparse.pack`` made (a ``CsrMatrix``) and skip the autograd wrapper, as
+the reference does.  The reference's ``pallas`` entries quietly ran the
+library when a CSR operand came without ``max_nnz_row`` (its ELL width
+had to be static under ``jax.jit``); the ``cuda`` kernels read CSR, so on
+the card they always launch.  The other ``kk.*`` ops of the reference
+register here with their kernels, slice by slice.
 """
 from __future__ import annotations
 
@@ -19,7 +25,10 @@ import torch
 
 from repro_torch.core.registry import register
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import paged_kv as _pk
 from repro_torch.kernels import ref
+from repro_torch.kernels import spmm as _spmm
+from repro_torch.kernels import spmv as _sp
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +92,30 @@ def gemv_cuda(a, x, *, tiling=None):
 
 
 # ---------------------------------------------------------------------------
+# kk.spmv / kk.spmm — the operand is the composite sparse value
+# ---------------------------------------------------------------------------
+
+@register("kk.spmv", "torch")
+def spmv_torch(a, x, *, tiling=None, max_nnz_row=None):
+    return _sp.spmv_reference(a, x)
+
+
+@register("kk.spmv", "cuda")
+def spmv_cuda(a, x, *, tiling=None, max_nnz_row=None):
+    return _sp.spmv(a, x, tiling=tiling)
+
+
+@register("kk.spmm", "torch")
+def spmm_torch(a, b, *, tiling=None, max_nnz_row=None):
+    return _sp.spmm_reference(a, b)
+
+
+@register("kk.spmm", "cuda")
+def spmm_cuda(a, b, *, tiling=None, max_nnz_row=None):
+    return _spmm.spmm_sparse(a, b, tiling=tiling)
+
+
+# ---------------------------------------------------------------------------
 # ahead-of-time builds
 # ---------------------------------------------------------------------------
 
@@ -102,6 +135,12 @@ def kernel_sources(graph) -> list:
             tiling = _mm.default_tiling(a.shape[0], 1, a.shape[1],
                                         dtype_itemsize(a.dtype))
             out.append(_mm.matmul_kernel(*_mm.check_tiling(tiling)))
+        elif op.opname == "kk.spmv":
+            out.append(_sp.spmv_kernel())
+        elif op.opname == "kk.spmm":
+            out.append(_spmm.spmm_kernel())
+        elif op.opname == "kokkos.page_gather":
+            out.append(_pk.page_gather_kernel())
         elif op.opname in KOKKOS_PARALLEL_OPS and \
                 not op.attrs.get("collapse"):
             if op.attrs["kind"] == "reduce":

@@ -1,7 +1,10 @@
 """The torch port stands alone: importing it pulls in neither JAX nor the
-reference package, and its sources (and chip_smoke.py) import neither."""
+reference package, and its sources (and chip_smoke.py) import neither;
+chip_smoke.py fails, printing no result, without a card or without the
+rest of the repository."""
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +42,22 @@ def test_import_pulls_in_neither_jax_nor_reference():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_repository(where, tmp_path):
+    import torch
+    if where == "repo" and torch.cuda.is_available():
+        pytest.skip("with a card the smoke runs for real")
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout and '"kernels"' not in res.stdout
 
 
 @pytest.mark.parametrize("path", sorted(

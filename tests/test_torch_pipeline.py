@@ -66,26 +66,27 @@ def _x():
         np.float32)
 
 
-def _dump(compile_fn, fn, spec, options, capsys):
-    compile_fn(fn, spec, options=options)
+def _dump(compile_fn, fn, specs, options, capsys):
+    compile_fn(fn, *specs, options=options)
     return _ids_normalized(capsys.readouterr().out)
 
 
-@pytest.mark.parametrize("case", ["mlp_demo", "qwen2_block"])
+@pytest.mark.parametrize("case", ["mlp_demo", "qwen2_block", "spmv_demo",
+                                  "paged_demo", "paged_swap_demo"])
 def test_ir_after_every_pass_matches_reference_on_loops(case, capsys):
-    if case == "mlp_demo":
-        jfn, jspecs, _ = jpipe._demo_mlp()
-        tfn, tspecs, _ = tpipe._demo_mlp()
-        jspec, tspec = jspecs[0], tspecs[0]
+    if case.endswith("_demo"):
+        demo = case[:-len("_demo")]
+        jfn, jspecs, _ = jpipe._DEMOS[demo]()
+        tfn, tspecs, _ = tpipe._DEMOS[demo]()
     else:
         p = _ref_params()
         jfn, tfn = _ref_block(p), _port_block(
             convert.from_numpy_tree(p, "cpu"))
-        jspec = jax.ShapeDtypeStruct((T, D), "float32")
-        tspec = TensorSpec((T, D), "float32")
-    ref = _dump(jpipe.compile, jfn, jspec,
+        jspecs = [jax.ShapeDtypeStruct((T, D), "float32")]
+        tspecs = [TensorSpec((T, D), "float32")]
+    ref = _dump(jpipe.compile, jfn, jspecs,
                 JOptions(target="loops", print_ir_after_all=True), capsys)
-    port = _dump(tpipe.compile, tfn, tspec,
+    port = _dump(tpipe.compile, tfn, tspecs,
                  TOptions(target="loops", device="cpu",
                           print_ir_after_all=True), capsys)
     assert ref.count("// ----- IR after") == 7
