@@ -35,7 +35,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    128, block 16, f32), 64 slots × 4096 positions: ``page_append`` →
    ``page_gather`` compiled for ``target="cuda"``, exactly equal to the
    ``torch`` target, the gather timed beside ``index_select`` + permute;
-7. print the ``{"kernels": [...]}`` line, the card line again, and as the
+7. the serving kernels against their plain versions on the card, in f32
+   and bf16: RMSNorm at (2048, 1536) and (8, 1536); decode attention at
+   8 slots x 12 query / 2 KV heads x 128 over 2048 positions with ragged
+   lengths that include 0, 1 and 2048, a window case and a stride-0
+   batch (the chunked prefill's broadcast row); flash attention at
+   12 / 2 heads x 128 over 2048 causal positions and the sweep cases of
+   ``tests/test_kernels.py`` (window, softcap, Sq != Skv, ragged tails);
+   each timed in bf16 beside its bound, its plain version and one
+   library call (``F.rms_norm``, ``F.scaled_dot_product_attention``);
+8. serving qwen2-1.5b at its published widths (28 layers, seeded bf16
+   weights): ``repro_torch.launch.serve.main`` with ``--paged --target
+   cuda`` over 16 ragged requests (prompts up to 512, up to 32 new
+   tokens, 8 slots), once with monolithic prefill and once with
+   ``--prefill-chunk 128``, each through flash attention, RMSNorm, the
+   page gather and decode attention with no plain-version call; then
+   prefill ms per prompt, the decode step's device and host time and
+   its launches per kernel, one decode step's bf16 logits on both
+   targets against the same step at f32 (the kernels no less accurate
+   than the plain versions), and the greedy tokens of every request
+   against the ``torch`` target at f32 compute, exactly;
+9. print the ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and
@@ -48,8 +68,10 @@ here from this run's shapes and the H100 SXM data-sheet peaks below.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +86,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # cores (the rate the FFMA kernels run at)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12    # dense bf16, the tensor cores
 T_TOKENS = 2048
 # paper Table 6.1: (matrix, rows, mean nonzeros per row, max per row)
 TABLE_6_1 = (("StocF-1465", 1_465_137, 14.34, 189),
@@ -76,6 +99,12 @@ SPMM_MATRIX, SPMM_COLS = "PFlow_742", 16   # a block Krylov solver's RHS
 KV_HEADS, HEAD_DIM, BLOCK, SLOTS, POSITIONS = 2, 128, 16, 64, 4096
 SAMPLES = 15
 SPIN_CYCLES = 2_000_000   # ~1 ms at the H100's clocks: covers the host's enqueue
+# phase 8: launch/serve.py's CLI at the full qwen2-1.5b widths
+SERVE_ARGS = ["--arch", "qwen2-1.5b", "--paged", "--target", "cuda",
+              "--requests", "16", "--slots", "8", "--prompt-len", "512",
+              "--gen-len", "32", "--ragged", "--block-size", "16",
+              "--seed", "0"]
+SERVE_SLOTS, SERVE_BLOCK = 8, 16
 
 
 def fail(msg: str) -> None:
@@ -91,9 +120,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float,
+          peak_ops: float = PEAK_FP32_PER_S) -> tuple:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -142,13 +172,19 @@ def main() -> int:
     from repro_torch.core import ops, pipeline, refs
     from repro_torch.core.options import CompileOptions
     from repro_torch.core.tracer import TensorSpec
+    from repro_torch.core.options import use_options
     from repro_torch.kernels import _build, generic, ref
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_kv as pk
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import spmm as spmm_mod
     from repro_torch.kernels import spmv as spmv_mod
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.models.mlp import gated_mlp_block
+    from repro_torch.models.model import build_model
 
     # the plain versions are held to full f32 as well
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -158,7 +194,9 @@ def main() -> int:
                 "block_map_region": generic.block_map_region,
                 "row_softmax": generic.row_softmax,
                 "spmv": spmv_mod.spmv, "spmm": spmm_mod.spmm_sparse,
-                "page_gather": pk.page_gather}
+                "page_gather": pk.page_gather, "rmsnorm": rn.rmsnorm,
+                "decode_attention": da.decode_attention,
+                "flash_attention": fa.flash_attention}
     path_counts = {}     # path -> counts() read just after driving it
 
     def reset_counts() -> None:
@@ -244,7 +282,8 @@ def main() -> int:
                + [ks for m in slice2_mods.values()
                   for ks in kops.kernel_sources(m.graph)]
                + [spmv_mod.spmv_kernel(), spmm_mod.spmm_kernel(),
-                  pk.page_gather_kernel()])
+                  pk.page_gather_kernel()]
+               + kops.serving_kernel_sources())
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
     build_s = time.perf_counter() - t0
@@ -454,7 +493,7 @@ def main() -> int:
 
     # per-kernel times at the main path's shapes
     rows = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "ops": 0.0, "bytes": 0.0}
+                "ops": 0.0, "bytes": 0.0, "peak": PEAK_FP32_PER_S}
             for n in wrappers}
 
     def add_row(name, t_k, t_p, t_l, ops_n, bytes_n) -> None:
@@ -675,6 +714,347 @@ def main() -> int:
     del pool, pool2, view, table, lengths, kv
 
     # ---------------------------------------------------------------- 7
+    print("phase 7: RMSNorm, decode attention and flash attention vs "
+          "plain versions on the card", flush=True)
+    F = torch.nn.functional
+    gen.manual_seed(7)
+    heads, kv_heads, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s_dec = 2048
+
+    def rand_t(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    # ragged decode lengths, 0, 1 and S among them
+    dec_len = torch.tensor([0, 1, s_dec, 17, 1000, 2047, 513, 64],
+                           dtype=torch.int32, device=dev)
+    flash_sweep = [  # tests/test_kernels.py: (hq, hkv, sq, skv, causal,
+        # window, d, softcap), batch 2
+        (4, 4, 64, 64, True, None, 32, None),
+        (4, 2, 100, 100, True, None, 32, None),
+        (8, 1, 64, 64, True, 17, 32, None),
+        (4, 4, 32, 96, False, None, 32, None),
+        (6, 2, 65, 65, True, 33, 32, None),
+        (2, 2, 48, 48, True, None, 16, 30.0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        # f32: another summation order; bf16: both round an f32 result
+        # once, so they differ by an ulp or two of the bf16 output
+        tol_rms = 2e-5 if dtype == torch.float32 else 1e-2
+        tol_att = 2e-4 if dtype == torch.float32 else 2e-2
+        for n_rows in (2048, 8):
+            xr, wr = rand_t((n_rows, d), dtype), rand_t((d,), dtype)
+            compare("rmsnorm", rn.rmsnorm(xr, wr), ref.rmsnorm(xr, wr),
+                    tol_rms, f"rmsnorm {n_rows}x{d} {tag} (x max|plain|)",
+                    relative=True)
+        q = rand_t((SERVE_SLOTS, heads, hd), dtype)
+        kc = rand_t((SERVE_SLOTS, kv_heads, s_dec, hd), dtype)
+        vc = rand_t((SERVE_SLOTS, kv_heads, s_dec, hd), dtype)
+        got = da.decode_attention(q, kc, vc, dec_len)
+        want = ref.decode_attention(q, kc, vc, dec_len)
+        torch.cuda.synchronize()
+        if not (bool(got[0].eq(0).all()) and bool(want[0].isnan().all())):
+            fail("decode attention's length-0 row: kernel must give 0, "
+                 "the plain version NaN")
+        compare("decode_attention", got[1:], want[1:], tol_att,
+                f"decode_attention {SERVE_SLOTS}x{heads}/{kv_heads}x{hd} "
+                f"S={s_dec} lengths {dec_len.tolist()} {tag} (row 0: 0 "
+                "against NaN)")
+        win_len = dec_len.clamp(min=1)
+        compare("decode_attention",
+                da.decode_attention(q, kc, vc, win_len, window=256),
+                ref.decode_attention(q, kc, vc, win_len, window=256),
+                tol_att, f"decode_attention window 256 {tag}")
+        c_rows = 128
+        q_c = rand_t((c_rows, heads, hd), dtype)
+        k1, v1 = kc[:1], vc[:1]
+        kb = k1.expand(c_rows, kv_heads, s_dec, hd)
+        vb = v1.expand(c_rows, kv_heads, s_dec, hd)
+        chunk_len = torch.arange(s_dec - c_rows + 1, s_dec + 1,
+                                 dtype=torch.int32, device=dev)
+        compare("decode_attention",
+                da.decode_attention(q_c, kb, vb, chunk_len),
+                ref.decode_attention(q_c, kb.contiguous(), vb.contiguous(),
+                                     chunk_len),
+                tol_att, f"decode_attention stride-0 batch, {c_rows} rows "
+                f"of one cached row {tag}")
+        qf = rand_t((1, heads, s_dec, hd), dtype)
+        kf = rand_t((1, kv_heads, s_dec, hd), dtype)
+        vf = rand_t((1, kv_heads, s_dec, hd), dtype)
+        compare("flash_attention", fa.flash_attention(qf, kf, vf),
+                ref.attention(qf, kf, vf), tol_att,
+                f"flash_attention 1x{heads}/{kv_heads}x{s_dec}x{hd} causal "
+                f"{tag}")
+        for hq_, hkv_, sq_, skv_, causal, window, d_, cap in flash_sweep:
+            qs = rand_t((2, hq_, sq_, d_), dtype)
+            ks = rand_t((2, hkv_, skv_, d_), dtype)
+            vs = rand_t((2, hkv_, skv_, d_), dtype)
+            kw = {"causal": causal, "window": window, "logit_softcap": cap}
+            compare("flash_attention", fa.flash_attention(qs, ks, vs, **kw),
+                    ref.attention(qs, ks, vs, **kw), tol_att,
+                    f"flash_attention {hq_}/{hkv_} heads {sq_}x{skv_}x{d_} "
+                    f"{kw} {tag}")
+
+    # times in bf16, the serving dtype, at the phase's headline shapes
+    bf = torch.bfloat16
+    for n_rows in (2048, 8):
+        xr, wr = rand_t((n_rows, d), bf), rand_t((d,), bf)
+        t_k = time_ms(lambda: rn.rmsnorm(xr, wr))
+        t_p = time_ms(lambda: ref.rmsnorm(xr, wr))
+        t_l = time_ms(lambda: F.rms_norm(xr, (d,), wr, eps=1e-6))
+        bytes_n, ops_n = 2.0 * (2 * xr.numel() + d), 4.0 * xr.numel()
+        b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
+        print(f"  rmsnorm {n_rows}x{d} bf16: {t_k:.4f} ms (plain {t_p:.4f}, "
+              f"F.rms_norm {t_l:.4f}, bound {b_ms:.6f} by {b_by})",
+              flush=True)
+        add_row("rmsnorm", t_k, t_p, t_l, ops_n, bytes_n)
+    q = rand_t((SERVE_SLOTS, heads, hd), bf)
+    kc = rand_t((SERVE_SLOTS, kv_heads, s_dec, hd), bf)
+    vc = rand_t((SERVE_SLOTS, kv_heads, s_dec, hd), bf)
+    mask = (torch.arange(s_dec, device=dev)[None, :]
+            < dec_len[:, None])[:, None, None, :]
+    t_k = time_ms(lambda: da.decode_attention(q, kc, vc, dec_len))
+    t_p = time_ms(lambda: ref.decode_attention(q, kc, vc, dec_len))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True))
+    valid = float(dec_len.clamp(max=s_dec).sum())
+    bytes_n = 2.0 * (2 * q.numel() + 2 * valid * kv_heads * hd)
+    ops_n = 4.0 * valid * heads * hd
+    b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
+    print(f"  decode_attention {SERVE_SLOTS}x{heads}/{kv_heads}x{hd}, "
+          f"{int(valid)} valid positions of {SERVE_SLOTS * s_dec}, bf16: "
+          f"{t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, bound "
+          f"{b_ms:.6f} by {b_by}; {bytes_n / t_k / 1e6:.0f} GB/s)",
+          flush=True)
+    add_row("decode_attention", t_k, t_p, t_l, ops_n, bytes_n)
+    qf = rand_t((1, heads, s_dec, hd), bf)
+    kf = rand_t((1, kv_heads, s_dec, hd), bf)
+    vf = rand_t((1, kv_heads, s_dec, hd), bf)
+    t_k = time_ms(lambda: fa.flash_attention(qf, kf, vf))
+    t_p = time_ms(lambda: ref.attention(qf, kf, vf))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True, enable_gqa=True))
+    pairs = s_dec * (s_dec + 1) / 2.0
+    ops_n = 4.0 * pairs * heads * hd
+    bytes_n = 2.0 * (2 * qf.numel() + kf.numel() + vf.numel())
+    b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
+    ffma_ms, _ = bound(bytes_n, ops_n, PEAK_FP32_PER_S)
+    print(f"  flash_attention 1x{heads}/{kv_heads}x{s_dec}x{hd} causal bf16: "
+          f"{t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, bound {b_ms:.4f} "
+          f"by {b_by} at the bf16 tensor-core peak, {ffma_ms:.4f} at the "
+          f"FP32 FFMA peak the kernel runs on; "
+          f"{ops_n / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+    add_row("flash_attention", t_k, t_p, t_l, ops_n, bytes_n)
+    for name in ("rmsnorm", "decode_attention", "flash_attention"):
+        rows[name]["peak"] = PEAK_BF16_PER_S
+    del q, kc, vc, qf, kf, vf, mask
+
+    # ---------------------------------------------------------------- 8
+    print("phase 8: serving qwen2-1.5b at full width: launch.serve.main("
+          f"{' '.join(SERVE_ARGS)} [--prefill-chunk 128])", flush=True)
+    need = ("flash_attention", "rmsnorm", "page_gather", "decode_attention")
+    serve_stats = {}
+    for label, extra in (("serve", []),
+                         ("serve chunked", ["--prefill-chunk", "128"])):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_mod.main(SERVE_ARGS + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = path_counts[label] = counts()
+        out = buf.getvalue().strip()
+        launched = {n: l for n, (l, _) in c.items() if l}
+        print(f"  {' '.join(extra) or 'monolithic prefill'}: {out}; "
+              f"{wall:.1f} s with init; launches {launched}", flush=True)
+        m = re.search(r"(\d+) requests, (\d+) tokens in (\d+) decode steps, "
+                      r"([\d.]+) tok/s", out)
+        if rc != 0 or m is None or int(m.group(1)) != 16:
+            fail(f"serve.main {label} returned {rc}: {out!r}")
+        if any(c[n][0] == 0 for n in need) or any(p for _, p in c.values()):
+            fail(f"{label} launched {launched}: every one of {need} must "
+                 "launch, and no plain version may run")
+        serve_stats[label] = {"tokens": int(m.group(2)),
+                              "steps": int(m.group(3)),
+                              "tok_per_s": float(m.group(4)),
+                              "launches": launched}
+        print(f"  {label}: {float(m.group(4)):.1f} tok/s over "
+              f"{int(m.group(3))} decode steps", flush=True)
+
+    cfg_full = get_config("qwen2-1.5b")
+    model = build_model(cfg_full)
+    sparams = serve_mod.cast_compute(model.init(0, dev),
+                                     cfg_full.compute_dtype)
+    reqs = serve_mod.make_requests(16, prompt_len=512, gen_len=32,
+                                   vocab=cfg_full.vocab_size, seed=0,
+                                   ragged=True)
+    on_cuda = CompileOptions(target="cuda")
+    prefill_ms = []
+    with use_options(on_cuda):
+        def prefill(r):
+            toks = torch.as_tensor(r.prompt[None], device=dev)
+            return model.prefill(sparams, {"tokens": toks},
+                                 max_len=r.prompt_len)
+        prefill(reqs[0])
+        for r in reqs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(r)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    mean_prompt = statistics.mean(r.prompt_len for r in reqs)
+    print(f"  prefill ms per prompt: {statistics.mean(prefill_ms):.2f} mean "
+          f"over 16 prompts of mean length {mean_prompt:.1f} (min "
+          f"{min(prefill_ms):.2f}, max {max(prefill_ms):.2f}; host clock, "
+          "synchronized)", flush=True)
+
+    # a steady decode step: 8 slots at the first 8 prompts' lengths over
+    # a pool sized as serve.main sizes it, filled with seeded values
+    per_slot = -(-(512 + 32) // SERVE_BLOCK)
+    n_blocks = 1 + per_slot * (SERVE_SLOTS + 1)
+    table = (torch.arange(SERVE_SLOTS * per_slot, dtype=torch.int32,
+                          device=dev) + 1).view(SERVE_SLOTS, per_slot)
+    lengths = torch.tensor([r.prompt_len for r in reqs[:SERVE_SLOTS]],
+                           dtype=torch.int32, device=dev)
+    token = torch.randint(1, cfg_full.vocab_size, (SERVE_SLOTS,),
+                          generator=gen, device=dev, dtype=torch.int32)
+    pools = model.init_paged_cache(n_blocks, SERVE_BLOCK, device=dev)
+    for key in pools:
+        pools[key] = [rand_t(p.shape, p.dtype) for p in pools[key]]
+
+    def step(target):
+        with use_options(CompileOptions(target=target)):
+            return model.paged_decode_step(sparams, token, pools, table,
+                                           lengths, block_size=SERVE_BLOCK)
+
+    step("cuda")
+    step("torch")
+    reset_counts()
+    logits_cuda = step("cuda")[0].float()
+    torch.cuda.synchronize()
+    step_counts = path_counts["decode step"] = counts()
+    logits_torch = step("torch")[0].float()
+    # the same step at f32 compute (the bf16 weights and pools widened,
+    # plain versions) is the yardstick of both bf16 paths: 28 layers of
+    # bf16 activations carry rounding flips to the logits, so the two
+    # bf16 paths differ from each other by about as much as each differs
+    # from f32; the kernels must be no less accurate than the plain
+    # versions (mean |error| within 1.25x of theirs)
+    cfg_f32 = dataclasses.replace(cfg_full, compute_dtype="float32")
+    with use_options(CompileOptions(target="torch")):
+        logits_f32 = build_model(cfg_f32).paged_decode_step(
+            serve_mod.cast_compute(sparams, "float32"), token,
+            {k: [x.float() for x in v] for k, v in pools.items()}, table,
+            lengths, block_size=SERVE_BLOCK)[0]
+    diff = (logits_cuda - logits_torch).abs()
+    err_c = (logits_cuda - logits_f32).abs()
+    err_t = (logits_torch - logits_f32).abs()
+    print(f"  one decode step, bf16, against the f32 step: cuda target mean "
+          f"|err| {float(err_c.mean()):.5f} (max {float(err_c.max()):.4f}), "
+          f"torch target {float(err_t.mean()):.5f} (max "
+          f"{float(err_t.max()):.4f}); cuda vs torch mean "
+          f"{float(diff.mean()):.5f}, max {float(diff.max()):.4f} of "
+          f"max|logits| {float(logits_f32.abs().max()):.3f} (limit: cuda "
+          "mean |err| <= 1.25 x torch's)", flush=True)
+    if not float(err_c.mean()) <= 1.25 * float(err_t.mean()) or \
+            not bool(torch.isfinite(logits_cuda).all()):
+        fail("the decode step on the cuda target is less accurate in bf16 "
+             "than on the torch target")
+    per_step = {n: l for n, (l, p) in step_counts.items() if l}
+    print(f"  per-kernel launches per decode step: {per_step}", flush=True)
+    if any(p for _, p in step_counts.values()) or \
+            per_step.get("decode_attention") != cfg_full.n_layers:
+        fail(f"decode step launched {per_step} with plain calls")
+
+    def host_and_wall(target, n=10):
+        """(host ms, synchronized wall ms) of one step started on an idle
+        card: the host time is the Python call's, which returns once
+        every kernel of the step is enqueued (a step launches more
+        kernels than the card's queue holds, so a card held busy would
+        block the host, and time it would measure is the card's)."""
+        host, wall = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(target)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3)
+            wall.append((t2 - t0) * 1e3)
+        return statistics.median(host), statistics.median(wall)
+
+    def device_busy(target, n=5):
+        """Kernel time per step from the profiler (the card's busy time,
+        gaps excluded), and the five largest kernels by time."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step(target)
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.key_averages():
+            t_us = getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0))
+            if t_us > 0:
+                by_name[ev.key] = t_us / n / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        return sum(by_name.values()), top
+
+    step_stats = {}
+    for target in ("cuda", "torch"):
+        host_t, wall = host_and_wall(target)
+        busy, top = device_busy(target)
+        if busy <= 0:
+            fail("the profiler saw no kernel time in the decode step")
+        step_stats[target] = {"host_ms": host_t, "wall_ms": wall,
+                              "device_busy_ms": busy,
+                              "top_kernels_ms": top}
+        print(f"  decode step, {target} target: device busy {busy:.3f} ms "
+              f"(profiler), host {host_t:.3f} ms, synchronized wall "
+              f"{wall:.3f} ms (host share {host_t / wall:.0%}, device busy "
+              f"{busy / wall:.0%})", flush=True)
+        print("    largest kernels (ms per step): " + "; ".join(
+            f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
+    del pools, sparams
+    torch.cuda.empty_cache()
+
+    # f32 compute: every request's greedy tokens, cuda against torch
+    cfg32 = dataclasses.replace(cfg_full, compute_dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = serve_mod.cast_compute(model32.init(0, dev), "float32")
+    tokens32 = {}
+    for target in ("cuda", "torch"):
+        reset_counts()
+        out32 = serve_mod.serve_paged(
+            model32, params32,
+            serve_mod.make_requests(16, prompt_len=512, gen_len=32,
+                                    vocab=cfg32.vocab_size, seed=0,
+                                    ragged=True),
+            n_slots=SERVE_SLOTS, block_size=SERVE_BLOCK, num_blocks=n_blocks,
+            options=CompileOptions(target=target))
+        torch.cuda.synchronize()
+        c = counts()
+        if target == "cuda":
+            path_counts["serve f32"] = c
+            if any(c[n][0] == 0 for n in need) or \
+                    any(p for _, p in c.values()):
+                fail(f"f32 serving launched {c} with plain calls")
+        tokens32[target] = {r.rid: list(r.tokens) for r in out32["requests"]}
+        print(f"  f32 serve_paged on {target}: {out32['tokens']} tokens in "
+              f"{out32['steps']} steps, {out32['tok_per_s']:.1f} tok/s",
+              flush=True)
+    same = sum(tokens32["cuda"][i] == tokens32["torch"][i] for i in range(16))
+    print(f"  f32 greedy tokens, cuda vs torch target: {same} of 16 "
+          "requests equal", flush=True)
+    if same != 16:
+        fail("f32 greedy tokens differ between the cuda and torch targets")
+    del params32
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 9
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:57"),
@@ -688,11 +1068,19 @@ def main() -> int:
                  "src/repro/kernels/spmm.py:57"),
         "page_gather": ("src/repro_torch/kernels/csrc/page_gather.cu",
                         "src/repro/kernels/paged_kv.py:139"),
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:39"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:100"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:120"),
     }
     kernels = []
     for name in wrappers:
         r = rows[name]
-        b_ms, b_by = bound(r["bytes"], r["ops"])
+        b_ms, b_by = bound(r["bytes"], r["ops"], r["peak"])
         launches = sum(c[name][0] for c in path_counts.values())
         if launches == 0:
             fail(f"{name} was never launched on the main paths")
@@ -710,6 +1098,9 @@ def main() -> int:
                       "build_s": build_s, "tokens": T_TOKENS,
                       "d_model": d, "d_ff": d_ff, "spmv": spmv_stats,
                       "spmm": spmm_stats, "paged": paged_stats,
+                      "serve": serve_stats, "prefill_ms": prefill_ms,
+                      "decode_step": step_stats,
+                      "decode_step_launches": per_step,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

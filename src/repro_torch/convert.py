@@ -31,3 +31,22 @@ def from_numpy_tree(tree, device: str = "cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy_tree(v, device) for v in tree)
     return numpy_to_torch(np.asarray(tree)).to(device)
+
+
+def model_params_from_numpy(tree, cfg, device: str = "cuda"):
+    """The reference's parameter tree for ``cfg`` (host arrays, e.g. the
+    reference model's ``init(0)`` after its compute-dtype cast, copied to
+    the host) as the port's tree on ``device``.  The two trees share
+    keys, stacked-layer shapes and dtypes; a tree that differs from the
+    port's ``model_spec(cfg)`` in keys or shapes raises."""
+    from repro_torch.models.spec import tree_leaves_with_path
+    from repro_torch.models.transformer import model_spec
+    want = {path: tuple(s.shape) for path, s in
+            tree_leaves_with_path(model_spec(cfg))}
+    got = {path: tuple(np.shape(a)) for path, a in
+           tree_leaves_with_path(tree)}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"parameter tree differs from the port's "
+                         f"model_spec for {cfg.name}: {diff[:4]}")
+    return from_numpy_tree(tree, device)

@@ -210,6 +210,9 @@ def dot(a, b):
 # ---------------------------------------------------------------------------
 
 _PIPELINE_CACHE: dict = {}
+# hits and misses of the memo above; it evicts nothing (a serving run
+# meets few shapes and options)
+PIPELINE_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
 
 
 def _via_pipeline(opname: str, builder, arrays: tuple, kwargs: dict):
@@ -226,6 +229,7 @@ def _via_pipeline(opname: str, builder, arrays: tuple, kwargs: dict):
     key = (opname, specs, tuple(sorted(kwargs.items())),
            dataclasses.astuple(options))
     mod = _PIPELINE_CACHE.get(key)
+    PIPELINE_CACHE_STATS["hits" if mod is not None else "misses"] += 1
     if mod is None:
         def one_op(*args):
             return builder(*args, **kwargs)

@@ -9,6 +9,14 @@ Each ``kk.*`` op ported so far gets two implementations (the
               ``torch.autograd.Function`` whose forward is the kernel and
               whose backward is derived from the plain version.
 
+Model code calls the model-facing wrappers (``attention``,
+``decode_attention``, ``rmsnorm``), which ask the ambient
+``CompileOptions``' backend whether it wants kernels, as the reference
+does.  The reference sends attention above ``CHUNKED_ATTN_THRESHOLD``
+on its library path to ``kernels/chunked.py``; that module is not ported
+yet, so the ``torch`` target computes every length with the dense plain
+version (the same values, more memory above 2048 positions).
+
 The sparse ``kk.spmv`` / ``kk.spmm`` take the composite value
 ``sparse.pack`` made (a ``CsrMatrix``) and skip the autograd wrapper, as
 the reference does.  The reference's ``pallas`` entries quietly ran the
@@ -20,13 +28,18 @@ register here with their kernels, slice by slice.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
+from repro_torch.core.options import CompileOptions, current_options
 from repro_torch.core.registry import register
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import paged_kv as _pk
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import spmm as _spmm
 from repro_torch.kernels import spmv as _sp
 
@@ -116,8 +129,72 @@ def spmm_cuda(a, b, *, tiling=None, max_nnz_row=None):
 
 
 # ---------------------------------------------------------------------------
+# model-facing wrappers (options-driven dispatch)
+# ---------------------------------------------------------------------------
+
+def _use_kernels(options: CompileOptions) -> bool:
+    """Backend-policy query: hand-written kernels or the plain versions?
+    (``cuda`` → always kernels, which take their plain version only for
+    CPU tensors; ``auto`` → kernels iff the options resolve to the card;
+    library and loop backends → the plain versions.)"""
+    return options.backend().wants_kernels(options)
+
+
+def attention(q, k, v, *, causal=True, window=None, scale=None,
+              logit_softcap=None, options: Optional[CompileOptions] = None):
+    """GQA attention: the flash kernel where the backend wants kernels,
+    else one dense plain softmax block at every length."""
+    options = options or current_options()
+    kw = {"causal": causal, "window": window, "scale": scale,
+          "logit_softcap": logit_softcap}
+    if _use_kernels(options):
+        return _Kernelized.apply(functools.partial(_fa.flash_attention, **kw),
+                                 functools.partial(ref.attention, **kw),
+                                 q, k, v)
+    return ref.attention(q, k, v, **kw)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
+                     scale=None, options: Optional[CompileOptions] = None):
+    """One-token cached attention: the decode kernel where the backend
+    wants kernels, else the plain version."""
+    options = options or current_options()
+    kw = {"window": window, "scale": scale}
+    if _use_kernels(options):
+        return _Kernelized.apply(
+            functools.partial(_da.decode_attention, **kw),
+            functools.partial(ref.decode_attention, **kw),
+            q, k_cache, v_cache, lengths)
+    return ref.decode_attention(q, k_cache, v_cache, lengths, **kw)
+
+
+def rmsnorm(x, weight, *, eps=1e-6,
+            options: Optional[CompileOptions] = None):
+    options = options or current_options()
+    if _use_kernels(options):
+        return _Kernelized.apply(functools.partial(_rn.rmsnorm, eps=eps),
+                                 functools.partial(ref.rmsnorm, eps=eps),
+                                 x, weight)
+    return ref.rmsnorm(x, weight, eps=eps)
+
+
+# registry entries for the model-facing ops too (pipeline completeness)
+register("kk.attention", "torch")(
+    lambda q, k, v, *, tiling=None, **kw: ref.attention(q, k, v, **kw))
+register("kk.attention", "cuda")(
+    lambda q, k, v, *, tiling=None, **kw: _fa.flash_attention(q, k, v, **kw))
+
+
+# ---------------------------------------------------------------------------
 # ahead-of-time builds
 # ---------------------------------------------------------------------------
+
+def serving_kernel_sources() -> list:
+    """The kernel libraries the serving path launches besides the page
+    gather: decode attention, RMSNorm and flash attention."""
+    return [_da.decode_attention_kernel(), _rn.rmsnorm_kernel(),
+            _fa.flash_attention_kernel()]
+
 
 def kernel_sources(graph) -> list:
     """The kernel libraries a graph lowered for the ``cuda`` target
@@ -141,6 +218,8 @@ def kernel_sources(graph) -> list:
             out.append(_spmm.spmm_kernel())
         elif op.opname == "kokkos.page_gather":
             out.append(_pk.page_gather_kernel())
+        elif op.opname == "kk.attention":
+            out.append(_fa.flash_attention_kernel())
         elif op.opname in KOKKOS_PARALLEL_OPS and \
                 not op.attrs.get("collapse"):
             if op.attrs["kind"] == "reduce":

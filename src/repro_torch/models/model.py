@@ -1,0 +1,66 @@
+"""Model facade: one object per architecture wiring spec → init →
+prefill / decode — the port of the reference's ``models/model.py``, the
+serving half (the training half arrives with the training slice)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models import serve as serve_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.spec import init_params, param_count
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: Any
+    spec: dict
+
+    # -- params ---------------------------------------------------------------
+    def init(self, seed: int = 0, device="cuda"):
+        """Seeded parameters on ``device`` (torch's random bits, the
+        reference's shapes, init kinds and tree paths)."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return init_params(self.spec, gen, device)
+
+    def n_params(self) -> int:
+        return param_count(self.spec)
+
+    # -- compute ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, *,
+                   quantized: bool = False, device="cuda"):
+        return serve_mod.init_cache(self.cfg, batch, max_len,
+                                    quantized=quantized, device=device)
+
+    def prefill(self, params, batch: dict, *, max_len: int,
+                quantized: bool = False):
+        return serve_mod.prefill(params, batch, self.cfg, max_len=max_len,
+                                 quantized=quantized)
+
+    def decode_step(self, params, token, cache, length: int):
+        return serve_mod.decode_step(params, token, cache, length, self.cfg)
+
+    def init_paged_cache(self, n_blocks: int, block_size: int, *,
+                         quantized: bool = False, device="cuda"):
+        return serve_mod.init_paged_cache(self.cfg, n_blocks, block_size,
+                                          quantized=quantized, device=device)
+
+    def paged_decode_step(self, params, token, cache, table, lengths, *,
+                          block_size: int):
+        return serve_mod.paged_decode_step(params, token, cache, table,
+                                           lengths, self.cfg,
+                                           block_size=block_size)
+
+    def paged_prefill_chunk(self, params, tokens, start: int, cache,
+                            table_row, *, block_size: int):
+        return serve_mod.paged_prefill_chunk(params, tokens, start, cache,
+                                             table_row, self.cfg,
+                                             block_size=block_size)
+
+
+def build_model(cfg) -> Model:
+    cfg.validate()
+    return Model(cfg=cfg, spec=tfm.model_spec(cfg))

@@ -1,0 +1,115 @@
+"""Declarative parameter specs — the port of the reference's
+``models/spec.py``.
+
+Each model layer declares its parameters once as a tree of ``Spec``s
+(shape, logical axes, initializer).  From that tree come materialized
+parameters (:func:`init_params`) and parameter counts.  The logical axis
+names are kept for the distribution slice; one device needs none of
+them.
+
+:func:`init_params` takes a ``torch.Generator`` and derives one
+generator per leaf from the leaf's tree path (crc32, stable across
+processes), so a leaf's values do not move when the tree grows.  Shapes,
+init kinds and tree paths are the reference's; the random bits are
+torch's, not JAX's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Any, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"      # normal[:std] | xavier | zeros | ones | const:v
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every ``Spec`` leaf of a tree of dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves_with_path(tree, path=()):
+    """(path, leaf) pairs in key-sorted order, as JAX flattens dicts."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(tree_leaves_with_path(tree[k], path + (k,)))
+        return out
+    return [(path, tree)]
+
+
+def stack(spec_tree, n: int):
+    """Add a leading stacked-layers dim to every Spec in the tree."""
+    return tree_map(lambda s: Spec((n,) + s.shape, ("layers",) + s.axes,
+                                   s.init, s.dtype), spec_tree)
+
+
+def _init_leaf(spec: Spec, gen: torch.Generator, device) -> torch.Tensor:
+    kind, _, arg = spec.init.partition(":")
+    if kind == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if kind == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if kind == "const":
+        return torch.full(spec.shape, float(arg), dtype=spec.dtype,
+                          device=device)
+    if kind in ("normal", "xavier"):
+        if kind == "normal":
+            std = float(arg) if arg else 0.02
+        else:
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 \
+                else spec.shape[-1]
+            std = (1.0 / fan_in) ** 0.5
+        return (torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                            device=device) * std).to(spec.dtype)
+    if kind == "uniform_decay":
+        n = spec.shape[-1]
+        base = torch.linspace(0.0, 1.0, n, dtype=torch.float32,
+                              device=device)
+        return base.expand(spec.shape).to(spec.dtype).clone()
+    raise ValueError(f"unknown init {spec.init!r}")
+
+
+def _path_str(path) -> str:
+    return "/".join(f"['{k}']" for k in path)
+
+
+def init_params(spec_tree, gen: torch.Generator, device="cuda") -> Any:
+    """Materialize a spec tree on ``device``; each leaf draws from its own
+    generator, seeded from ``gen``'s seed and the crc32 of its path."""
+    seed = gen.initial_seed()
+
+    def build(path, tree):
+        if isinstance(tree, dict):
+            return {k: build(path + (k,), v) for k, v in tree.items()}
+        leaf_gen = torch.Generator(device=device)
+        leaf_gen.manual_seed(
+            (seed * 0x9E3779B1 + zlib.crc32(_path_str(path).encode()))
+            % (2**63))
+        return _init_leaf(tree, leaf_gen, device)
+
+    return build((), spec_tree)
+
+
+def param_count(spec_tree) -> int:
+    n = 0
+    for _, s in tree_leaves_with_path(spec_tree):
+        size = 1
+        for dim in s.shape:
+            size *= dim
+        n += size
+    return n

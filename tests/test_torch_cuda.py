@@ -19,6 +19,10 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import paged_kv as pk
 from repro_torch.kernels import spmm as spmm_mod
 from repro_torch.kernels import spmv as spmv_mod
+from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attention as da_mod
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import rmsnorm as rn_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -219,3 +223,188 @@ def test_slice2_demos_run_through_the_kernels_only(card, demo):
     assert all(w.plain_calls == 0 for w in wrappers.values())
     lib = pipeline.compile(fn, *specs, options=CompileOptions(target="torch"))
     torch.testing.assert_close(y, lib(*ex), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# slice 3: RMSNorm, decode attention, flash attention, one serving step
+# ---------------------------------------------------------------------------
+
+# f32: the kernel sums in another order than the plain version; bf16: both
+# compute in f32 from the same bf16 inputs and round once, so they differ
+# by at most an ulp of the bf16 result or two
+_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 64), (3, 33, 128), (1, 1, 256),
+                                   (8, 1536), (2048, 1536), (7, 100)])
+def test_rmsnorm_kernel_matches_plain(card, rng, shape, dtype):
+    x = _randn(rng, shape, dtype=dtype)
+    w = _randn(rng, (shape[-1],), dtype=dtype)
+    before = rn_mod.rmsnorm.launches
+    got = rn_mod.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rn_mod.rmsnorm.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.rmsnorm(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+def _decode_case(rng, b, hq, hkv, s, d, dtype, lengths=None):
+    q = _randn(rng, (b, hq, d), dtype=dtype)
+    k = _randn(rng, (b, hkv, s, d), dtype=dtype)
+    v = _randn(rng, (b, hkv, s, d), dtype=dtype)
+    if lengths is None:
+        lengths = rng.integers(1, s + 1, b)
+    return q, k, v, torch.tensor(np.asarray(lengths), dtype=torch.int32,
+                                 device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,s,d,window", [
+    (4, 4, 100, 32, None), (8, 2, 128, 32, None), (4, 1, 90, 32, 33),
+    (2, 2, 64, 32, 16), (12, 2, 2048, 128, None), (12, 2, 544, 128, 100),
+    (4, 2, 37, 16, None), (6, 1, 300, 64, None)])
+def test_decode_attention_kernel_matches_plain(card, rng, hq, hkv, s, d,
+                                               window, dtype):
+    q, k, v, lengths = _decode_case(rng, 3, hq, hkv, s, d, dtype)
+    before = da_mod.decode_attention.launches
+    got = da_mod.decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert da_mod.decode_attention.launches == before + 1
+    want = ref.decode_attention(q, k, v, lengths, window=window)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_attention_kernel_ragged_rows_and_the_empty_row(card, rng):
+    """qwen2-1.5b's decode shape at 8 slots: lengths 0, 1 and S among
+    ragged ones.  The empty row is 0 from the kernel (NaN from the plain
+    version, as the reference's softmax over no position)."""
+    s = 2048
+    lengths = [0, 1, s, 17, 1000, 2047, 513, 64]
+    q, k, v, lens = _decode_case(rng, 8, 12, 2, s, 128, torch.float32,
+                                 lengths)
+    got = da_mod.decode_attention(q, k, v, lens)
+    want = ref.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert got[0].eq(0).all() and want[0].isnan().all()
+    torch.testing.assert_close(got[1:], want[1:], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_reads_a_stride0_batch(card, rng, dtype):
+    """Chunked prefill hands C query rows one gathered cache row,
+    broadcast with batch stride 0: read in place, causal per row."""
+    c, s = 64, 300
+    q = _randn(rng, (c, 12, 128), dtype=dtype)
+    k1 = _randn(rng, (1, 2, s, 128), dtype=dtype)
+    v1 = _randn(rng, (1, 2, s, 128), dtype=dtype)
+    k, v = k1.expand(c, 2, s, 128), v1.expand(c, 2, s, 128)
+    assert k.stride(0) == 0
+    lens = torch.arange(s - c + 1, s + 1, dtype=torch.int32, device="cuda")
+    got = da_mod.decode_attention(q, k, v, lens)
+    want = ref.decode_attention(q, k.contiguous(), v.contiguous(), lens)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,sq,skv,causal,window,d,softcap", [
+    (4, 4, 64, 64, True, None, 32, None),
+    (4, 2, 100, 100, True, None, 32, None),
+    (8, 1, 64, 64, True, 17, 32, None),
+    (4, 4, 32, 96, False, None, 32, None),
+    (6, 2, 65, 65, True, 33, 32, None),
+    (2, 2, 48, 48, True, None, 16, 30.0),
+    (12, 2, 2048, 2048, True, None, 128, None),
+    (12, 2, 300, 300, True, None, 128, 50.0),
+    (4, 2, 130, 70, True, None, 64, None)])
+def test_flash_attention_kernel_matches_plain(card, rng, hq, hkv, sq, skv,
+                                              causal, window, d, softcap,
+                                              dtype):
+    b = 1 if sq >= 2048 else 2
+    q = _randn(rng, (b, hq, sq, d), dtype=dtype)
+    k = _randn(rng, (b, hkv, skv, d), dtype=dtype)
+    v = _randn(rng, (b, hkv, skv, d), dtype=dtype)
+    before = fa_mod.flash_attention.launches
+    got = fa_mod.flash_attention(q, k, v, causal=causal, window=window,
+                                 logit_softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_mod.flash_attention.launches == before + 1
+    want = ref.attention(q, k, v, causal=causal, window=window,
+                         logit_softcap=softcap)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_reads_transposed_views(card, rng):
+    """The model hands (B, S, H, D) projections transposed to (B, H, S, D):
+    the kernel reads the strides, the result equals the contiguous one."""
+    q = _randn(rng, (2, 100, 12, 128)).transpose(1, 2)
+    k = _randn(rng, (2, 100, 2, 128)).transpose(1, 2)
+    v = _randn(rng, (2, 100, 2, 128)).transpose(1, 2)
+    got = fa_mod.flash_attention(q, k, v)
+    want = fa_mod.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_serving_kernels_refuse_what_they_do_not_take(card, rng):
+    q, k, v, lens = _decode_case(rng, 2, 18, 2, 64, 128, torch.float32)
+    with pytest.raises(ValueError):     # 9 query heads per KV head
+        da_mod.decode_attention(q, k, v, lens)
+    with pytest.raises(TypeError):
+        da_mod.decode_attention(q[:, :4], k, v, lens.long())
+    with pytest.raises(ValueError):     # head dim 40
+        fa_mod.flash_attention(*(_randn(rng, (1, 2, 8, 40))
+                                 for _ in range(3)))
+    with pytest.raises(TypeError):
+        rn_mod.rmsnorm(_randn(rng, (4, 8)).half(), _randn(rng, (8,)))
+    with pytest.raises(TypeError):      # a weight in another dtype than x
+        rn_mod.rmsnorm(_randn(rng, (4, 8), dtype=torch.bfloat16),
+                       _randn(rng, (8,)))
+
+
+def test_full_width_paged_decode_step_cuda_matches_torch(card):
+    """qwen2-1.5b at its published widths (depth cut to 4 layers, seeded
+    weights, bf16): one paged decode step over 8 ragged slots on the
+    cuda target against the torch target."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.options import use_options
+    from repro_torch.launch.serve import cast_compute
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4)
+    model = build_model(cfg)
+    params = cast_compute(model.init(0, "cuda"), cfg.compute_dtype)
+    bs, slots, mb = 16, 8, 8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    lengths = torch.tensor([0, 5, 17, 33, 64, 100, 127, 90],
+                           dtype=torch.int32, device="cuda")
+    table = (torch.arange(slots * mb, dtype=torch.int32, device="cuda")
+             .view(slots, mb) + 1)
+    token = torch.randint(1, cfg.vocab_size, (slots,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    pools = model.init_paged_cache(slots * mb + 1, bs, device="cuda")
+    for k in pools:
+        pools[k] = [torch.randn(p.shape, generator=gen, device="cuda")
+                    .to(p.dtype) for p in pools[k]]
+    out = {}
+    for target in ("cuda", "torch"):
+        for w in (da_mod.decode_attention, rn_mod.rmsnorm, pk.page_gather):
+            w.launches = w.plain_calls = 0
+        with use_options(CompileOptions(target=target)):
+            logits, _ = model.paged_decode_step(params, token, pools, table,
+                                                lengths, block_size=bs)
+        torch.cuda.synchronize()
+        out[target] = logits.float()
+        kernels = (da_mod.decode_attention.launches, rn_mod.rmsnorm.launches,
+                   pk.page_gather.launches)
+        assert kernels == ((4, 9, 8) if target == "cuda" else (0, 0, 0))
+        assert da_mod.decode_attention.plain_calls == 0
+    err = float((out["cuda"] - out["torch"]).abs().max())
+    assert err <= 0.05 * float(out["torch"].abs().max()), err

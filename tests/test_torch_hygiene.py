@@ -30,6 +30,11 @@ def _port_modules():
 
 def test_import_pulls_in_neither_jax_nor_reference():
     mods = _port_modules()
+    for serving in ("repro_torch.runtime.scheduler",
+                    "repro_torch.models.serve", "repro_torch.models.model",
+                    "repro_torch.models.attention",
+                    "repro_torch.launch.serve"):
+        assert serving in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
