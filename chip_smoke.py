@@ -55,8 +55,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    targets against the same step at f32 (the kernels no less accurate
    than the plain versions), and the greedy tokens of every request
    against the ``torch`` target at f32 compute, exactly;
-9. print the ``{"kernels": [...]}`` line, the card line again, and as the
-   last line ``{"ok": true, "device": {...}}``.
+9. the recurrent families' kernels against their plain versions on the
+   card, in f32 and bf16: the RWKV6 WKV scan at rwkv6-3b's prefill (4 x
+   512 tokens, 40 heads x 64) and the RG-LRU scan at recurrentgemma-9b's
+   (4 x 2040 tokens, 4096 channels) and decode step (T = 1), each from
+   zero and from a given state, the final state included, and at the
+   sweep shapes of ``tests/test_kernels.py``; flash attention at
+   recurrentgemma's 16 / 1 heads x 256 with window 2048 and decode
+   attention over its 2048-slot ring; each timed in bf16 beside its
+   bound, its plain version and, for attention, SDPA (no one torch call
+   computes a scan);
+10. serving rwkv6-3b at its published widths (32 layers, seeded bf16
+    weights): ``repro_torch.launch.serve.main`` (the wave loop) over 8
+    requests in waves of 4, 512-token prompts, 32 new tokens, through
+    the WKV scan and RMSNorm with no plain-version call; prefill ms,
+    the decode step's host and device time and its launches per
+    kernel, and every request's greedy tokens at f32 compute on the
+    ``cuda`` target against ``torch``, exactly;
+11. the same for recurrentgemma-9b (38 layers, 9.4 B parameters) over 4
+    requests of 2040 + 32 tokens, so decode crosses the ring's wrap at
+    2048, through the RG-LRU scan, flash attention (head dim 256,
+    window), decode attention (16 query heads per KV head) and RMSNorm;
+    each model is freed before the next;
+12. print the ``{"kernels": [...]}`` line, the card line again, and as
+    the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's ``launches`` is the sum over the paths.
@@ -105,6 +127,11 @@ SERVE_ARGS = ["--arch", "qwen2-1.5b", "--paged", "--target", "cuda",
               "--gen-len", "32", "--ragged", "--block-size", "16",
               "--seed", "0"]
 SERVE_SLOTS, SERVE_BLOCK = 8, 16
+# phases 10 and 11: the wave loop (launch.serve.main without --paged) at
+# the full widths of the two recurrent families; recurrentgemma-9b's
+# 2040-token prompts and 32 new tokens cross its 2048-slot ring's wrap
+RWKV_REQUESTS, RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 8, 4, 512, 32
+RG_REQUESTS, RG_BATCH, RG_PROMPT, RG_GEN = 4, 4, 2040, 32
 
 
 def fail(msg: str) -> None:
@@ -179,7 +206,9 @@ def main() -> int:
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_kv as pk
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rwkv6 as rw
     from repro_torch.kernels import spmm as spmm_mod
     from repro_torch.kernels import spmv as spmv_mod
     from repro_torch.launch import serve as serve_mod
@@ -196,7 +225,8 @@ def main() -> int:
                 "spmv": spmv_mod.spmv, "spmm": spmm_mod.spmm_sparse,
                 "page_gather": pk.page_gather, "rmsnorm": rn.rmsnorm,
                 "decode_attention": da.decode_attention,
-                "flash_attention": fa.flash_attention}
+                "flash_attention": fa.flash_attention,
+                "rwkv6_scan": rw.rwkv6_scan, "rglru_scan": rg.rglru_scan}
     path_counts = {}     # path -> counts() read just after driving it
 
     def reset_counts() -> None:
@@ -233,6 +263,42 @@ def main() -> int:
             end.synchronize()
             samples.append(start.elapsed_time(end))
         return statistics.median(samples)
+
+    def host_and_wall(fn, n=10):
+        """(host ms, synchronized wall ms) of one step started on an idle
+        card: the host time is the Python call's, which returns once
+        every kernel of the step is enqueued (a step launches more
+        kernels than the card's queue holds, so a card held busy would
+        block the host, and time it would measure is the card's)."""
+        host, wall = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3)
+            wall.append((t2 - t0) * 1e3)
+        return statistics.median(host), statistics.median(wall)
+
+    def device_busy(fn, n=5):
+        """Kernel time per step from the profiler (the card's busy time,
+        gaps excluded), and the five largest kernels by time."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.key_averages():
+            t_us = getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0))
+            if t_us > 0:
+                by_name[ev.key] = t_us / n / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        return sum(by_name.values()), top
 
     def on_card(arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -967,46 +1033,10 @@ def main() -> int:
             per_step.get("decode_attention") != cfg_full.n_layers:
         fail(f"decode step launched {per_step} with plain calls")
 
-    def host_and_wall(target, n=10):
-        """(host ms, synchronized wall ms) of one step started on an idle
-        card: the host time is the Python call's, which returns once
-        every kernel of the step is enqueued (a step launches more
-        kernels than the card's queue holds, so a card held busy would
-        block the host, and time it would measure is the card's)."""
-        host, wall = [], []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(target)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            host.append((t1 - t0) * 1e3)
-            wall.append((t2 - t0) * 1e3)
-        return statistics.median(host), statistics.median(wall)
-
-    def device_busy(target, n=5):
-        """Kernel time per step from the profiler (the card's busy time,
-        gaps excluded), and the five largest kernels by time."""
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step(target)
-            torch.cuda.synchronize()
-        by_name = {}
-        for ev in prof.key_averages():
-            t_us = getattr(ev, "self_device_time_total",
-                           getattr(ev, "self_cuda_time_total", 0.0))
-            if t_us > 0:
-                by_name[ev.key] = t_us / n / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        return sum(by_name.values()), top
-
     step_stats = {}
     for target in ("cuda", "torch"):
-        host_t, wall = host_and_wall(target)
-        busy, top = device_busy(target)
+        host_t, wall = host_and_wall(lambda: step(target))
+        busy, top = device_busy(lambda: step(target))
         if busy <= 0:
             fail("the profiler saw no kernel time in the decode step")
         step_stats[target] = {"host_ms": host_t, "wall_ms": wall,
@@ -1055,6 +1085,329 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 9
+    print("phase 9: the recurrent families' kernels vs plain versions on "
+          "the card: the RWKV6 and RG-LRU scans, flash and decode attention "
+          "at recurrentgemma-9b's 16 / 1 heads x 256", flush=True)
+    gen.manual_seed(9)
+    rw_cfg, rg_cfg = get_config("rwkv6-3b"), get_config("recurrentgemma-9b")
+    rw_h, rw_k = rw_cfg.n_rwkv_heads, rw_cfg.rwkv_head_dim
+    rg_d, rg_hq, rg_hkv, rg_hd = (rg_cfg.rglru_dim, rg_cfg.n_heads,
+                                  rg_cfg.n_kv_heads, rg_cfg.head_dim)
+    rw_b, rw_t = RWKV_BATCH, RWKV_PROMPT
+    rg_b, rg_t, ring = RG_BATCH, RG_PROMPT, rg_cfg.window
+
+    def rwkv_inputs(dtype, b=rw_b, t=rw_t, h=rw_h, k=rw_k, state=False):
+        """r, k, v (scaled normals), w in [0.97, 0.999) (rwkv6-3b's decays
+        sit near 1), u, and an optional f32 state."""
+        r_, k_, v_ = (rand_t((b, t, h, k), dtype, 0.5) for _ in range(3))
+        w_ = (0.97 + 0.029 * torch.rand((b, t, h, k), generator=gen,
+                                        device=dev)).to(dtype)
+        u_ = rand_t((h, k), dtype, 0.1)
+        s_ = rand_t((b, h, k, k), torch.float32, 0.5) if state else None
+        return r_, k_, v_, w_, u_, s_
+
+    def rglru_inputs(dtype, b=rg_b, t=rg_t, d_=rg_d, state=False):
+        x_, r_, i_ = (rand_t((b, t, d_), dtype) for _ in range(3))
+        return x_, r_, i_, rand_t((d_,), dtype), \
+            (rand_t((b, d_), torch.float32) if state else None)
+
+    def close(name, got, want, tol, what) -> None:
+        """Every element within tol + tol × |plain| (assert_allclose with
+        rtol = atol = tol, the reference's kernel bar): a scan's values
+        grow with T where the decays sit near 1."""
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        diff = (got.float() - want.float()).abs()
+        ratio = float((diff / (1.0 + want.float().abs())).max())
+        err = float(diff.max())
+        ok = ratio <= tol and bool(torch.isfinite(got).all())
+        print(f"  {what}: max|kernel - plain| = {err:.3e}, max of it over "
+              f"1 + |plain| {ratio:.3e} (limit {tol:.0e}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{what} disagrees with its plain version")
+        worst[name] = max(worst[name], err)
+
+    def compare_pair(name, got, want, tol, what):
+        close(name, got[0], want[0], tol, f"{what} y")
+        close(name, got[1], want[1], 2e-4, f"{what} final state (f32)")
+
+    # tests/test_kernels.py's sweeps: (b, t, h, k, v) / (b, t, d)
+    rec_sweep = [
+        ((2, 16, 3, 8, 16), (2, 16, 32)), ((2, 37, 3, 8, 16), (2, 29, 48)),
+        ((2, 64, 3, 8, 16), (2, 64, 128))]
+    ring_len = torch.full((rg_b,), ring, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        tol_y = 2e-4 if dtype == torch.float32 else 2e-2
+        for state in (False, True):
+            ins = rwkv_inputs(dtype, state=state)
+            compare_pair("rwkv6_scan", rw.rwkv6_scan(*ins),
+                         ref.rwkv6_scan(*ins), tol_y,
+                         f"rwkv6_scan {rw_b}x{rw_t}x{rw_h}x{rw_k} {tag} "
+                         f"{'given' if state else 'zero'} state")
+            ins = rglru_inputs(dtype, state=state)
+            compare_pair("rglru_scan", rg.rglru_scan(*ins),
+                         ref.rglru_scan(*ins), tol_y,
+                         f"rglru_scan {rg_b}x{rg_t}x{rg_d} {tag} "
+                         f"{'given' if state else 'zero'} state")
+        ins = rglru_inputs(dtype, t=1, state=True)
+        compare_pair("rglru_scan", rg.rglru_scan(*ins), ref.rglru_scan(*ins),
+                     tol_y, f"rglru_scan decode step {rg_b}x1x{rg_d} {tag}")
+        for (b_, t_, h_, k_, v_), (gb, gt, gd) in rec_sweep:
+            r_, k2, _, w_, u_, s_ = rwkv_inputs(dtype, b_, t_, h_, k_, True)
+            v2 = rand_t((b_, t_, h_, v_), dtype, 0.5)
+            s_ = rand_t((b_, h_, k_, v_), torch.float32, 0.5)
+            ins = (r_, k2, v2, w_, u_, s_)
+            compare_pair("rwkv6_scan", rw.rwkv6_scan(*ins),
+                         ref.rwkv6_scan(*ins), tol_y,
+                         f"rwkv6_scan sweep {b_}x{t_}x{h_}x{k_}/{v_} {tag}")
+            ins = rglru_inputs(dtype, gb, gt, gd, True)
+            compare_pair("rglru_scan", rg.rglru_scan(*ins),
+                         ref.rglru_scan(*ins), tol_y,
+                         f"rglru_scan sweep {gb}x{gt}x{gd} {tag}")
+        qf = rand_t((rg_b, rg_hq, rg_t, rg_hd), dtype)
+        kf = rand_t((rg_b, rg_hkv, rg_t, rg_hd), dtype)
+        vf = rand_t((rg_b, rg_hkv, rg_t, rg_hd), dtype)
+        compare("flash_attention",
+                fa.flash_attention(qf, kf, vf, window=ring),
+                ref.attention(qf, kf, vf, window=ring), tol_y,
+                f"flash_attention {rg_b}x{rg_hq}/{rg_hkv}x{rg_t}x{rg_hd} "
+                f"causal window {ring} {tag}")
+        q = rand_t((rg_b, rg_hq, rg_hd), dtype)
+        kc = rand_t((rg_b, rg_hkv, ring, rg_hd), dtype)
+        vc = rand_t((rg_b, rg_hkv, ring, rg_hd), dtype)
+        for n_valid in (rg_t + 1, ring):   # the first step, and past the wrap
+            lens = torch.full((rg_b,), n_valid, dtype=torch.int32, device=dev)
+            compare("decode_attention", da.decode_attention(q, kc, vc, lens),
+                    ref.decode_attention(q, kc, vc, lens), tol_y,
+                    f"decode_attention ring {rg_b}x{rg_hq}/{rg_hkv}x{rg_hd} "
+                    f"{n_valid} of {ring} slots {tag}")
+        del qf, kf, vf, q, kc, vc
+
+    # times in bf16, the serving dtype, at the prefill / decode shapes
+    recurrent_kernel_stats = {}
+    ins = rwkv_inputs(bf)[:5]
+    t_k = time_ms(lambda: rw.rwkv6_scan(*ins))
+    t_p = time_ms(lambda: ref.rwkv6_scan(*ins))
+    n_in = rw_b * rw_t * rw_h * rw_k
+    bytes_n = 2.0 * (5 * n_in + rw_h * rw_k) + 4.0 * rw_b * rw_h * rw_k ** 2
+    # per (t, k, v) an FMA for y and a multiply and an FMA for S; per step
+    # c_t = sum_k r u k (3 K) and y += v c_t (2 V), with K = V
+    ops_n = n_in * (5.0 * rw_k + 5.0)
+    b_ms, b_by = bound(bytes_n, ops_n, PEAK_FP32_PER_S)
+    print(f"  rwkv6_scan {rw_b}x{rw_t}x{rw_h}x{rw_k} bf16: {t_k:.4f} ms "
+          f"(plain {t_p:.4f}, no library call, bound {b_ms:.6f} by {b_by}: "
+          f"{bytes_n / 1e6:.1f} MB, {ops_n / 1e9:.2f} GFLOP f32)", flush=True)
+    add_row("rwkv6_scan", t_k, t_p, 0.0, ops_n, bytes_n)
+    recurrent_kernel_stats["rwkv6_scan"] = {"ms": t_k, "plain_ms": t_p,
+                                            "bound_ms": b_ms}
+    ins = rglru_inputs(bf)[:4]
+    t_k = time_ms(lambda: rg.rglru_scan(*ins))
+    t_p = time_ms(lambda: ref.rglru_scan(*ins))
+    n_el = rg_b * rg_t * rg_d
+    bytes_n = 2.0 * (4 * n_el + rg_d) + 4.0 * rg_b * rg_d
+    ops_n = 17.0 * n_el
+    b_ms, b_by = bound(bytes_n, ops_n, PEAK_FP32_PER_S)
+    print(f"  rglru_scan {rg_b}x{rg_t}x{rg_d} bf16: {t_k:.4f} ms (plain "
+          f"{t_p:.4f}, no library call, bound {b_ms:.6f} by {b_by}: "
+          f"{bytes_n / 1e6:.1f} MB; {bytes_n / t_k / 1e6:.0f} GB/s)",
+          flush=True)
+    add_row("rglru_scan", t_k, t_p, 0.0, ops_n, bytes_n)
+    recurrent_kernel_stats["rglru_scan"] = {"ms": t_k, "plain_ms": t_p,
+                                            "bound_ms": b_ms}
+    for name in ("rwkv6_scan", "rglru_scan"):
+        rows[name]["library_ms"] = None     # no one torch call scans
+    qf = rand_t((rg_b, rg_hq, rg_t, rg_hd), bf)
+    kf = rand_t((rg_b, rg_hkv, rg_t, rg_hd), bf)
+    vf = rand_t((rg_b, rg_hkv, rg_t, rg_hd), bf)
+    t_k = time_ms(lambda: fa.flash_attention(qf, kf, vf, window=ring))
+    t_p = time_ms(lambda: ref.attention(qf, kf, vf, window=ring))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True, enable_gqa=True))   # S <= window
+    pairs = rg_t * (rg_t + 1) / 2.0
+    ops_n = 4.0 * pairs * rg_b * rg_hq * rg_hd
+    bytes_n = 2.0 * (2 * qf.numel() + kf.numel() + vf.numel())
+    b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
+    print(f"  flash_attention {rg_b}x{rg_hq}/{rg_hkv}x{rg_t}x{rg_hd} window "
+          f"{ring} bf16: {t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, "
+          f"bound {b_ms:.4f} by {b_by}; {ops_n / t_k / 1e9:.1f} TFLOP/s)",
+          flush=True)
+    add_row("flash_attention", t_k, t_p, t_l, ops_n, bytes_n)
+    recurrent_kernel_stats["flash_attention_d256"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms}
+    q = rand_t((rg_b, rg_hq, rg_hd), bf)
+    kc = rand_t((rg_b, rg_hkv, ring, rg_hd), bf)
+    vc = rand_t((rg_b, rg_hkv, ring, rg_hd), bf)
+    t_k = time_ms(lambda: da.decode_attention(q, kc, vc, ring_len))
+    t_p = time_ms(lambda: ref.decode_attention(q, kc, vc, ring_len))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kc, vc, enable_gqa=True))     # every slot valid
+    valid = float(rg_b * ring)
+    bytes_n = 2.0 * (2 * q.numel() + 2 * valid * rg_hkv * rg_hd)
+    ops_n = 4.0 * valid * rg_hq * rg_hd
+    b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
+    print(f"  decode_attention ring {rg_b}x{rg_hq}/{rg_hkv}x{rg_hd} over "
+          f"{ring} slots bf16: {t_k:.4f} ms (plain {t_p:.4f}, SDPA "
+          f"{t_l:.4f}, bound {b_ms:.6f} by {b_by}; "
+          f"{bytes_n / t_k / 1e6:.0f} GB/s)", flush=True)
+    add_row("decode_attention", t_k, t_p, t_l, ops_n, bytes_n)
+    recurrent_kernel_stats["decode_attention_ring"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms}
+    rows["rwkv6_scan"]["peak"] = rows["rglru_scan"]["peak"] = PEAK_FP32_PER_S
+    del qf, kf, vf, q, kc, vc, ins
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 10, 11
+    def serve_recurrent(phase, arch, n_req, batch, plen, glen, need,
+                        per_step_want):
+        """Serve ``arch`` at full width through ``launch.serve.main`` with
+        the counts zeroed before and read after; then prefill ms, the
+        decode step's host and device time and its launches per kernel,
+        and the f32 greedy tokens of every request on ``cuda`` against
+        ``torch``.  Each model is freed before the next."""
+        argv = ["--arch", arch, "--target", "cuda", "--requests",
+                str(n_req), "--batch", str(batch), "--prompt-len",
+                str(plen), "--gen-len", str(glen), "--seed", "0"]
+        print(f"phase {phase}: serving {arch} at full width: "
+              f"launch.serve.main({' '.join(argv)})", flush=True)
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = path_counts[f"serve {arch}"] = counts()
+        out = buf.getvalue().strip()
+        launched = {n: l for n, (l, _) in c.items() if l}
+        print(f"  {out}; {wall:.1f} s with init; launches {launched}",
+              flush=True)
+        m = re.search(r"\[serve\] (\d+) requests, (\d+) tokens, "
+                      r"([\d.]+) tok/s", out)
+        if rc != 0 or m is None or int(m.group(1)) != n_req:
+            fail(f"serve.main {arch} returned {rc}: {out!r}")
+        if any(c[n][0] == 0 for n in need) or any(p for _, p in c.values()):
+            fail(f"{arch} launched {launched}: every one of {need} must "
+                 "launch, and no plain version may run")
+        torch.cuda.empty_cache()
+        stats = {"tok_per_s": float(m.group(3)), "wall_s": wall,
+                 "launches": launched}
+
+        cfg_a = get_config(arch)
+        model = build_model(cfg_a)
+        sparams = serve_mod.cast_compute(model.init(0, dev),
+                                         cfg_a.compute_dtype)
+        prng = np.random.default_rng(0)     # serve_loop's prompts
+        queue = [prng.integers(1, cfg_a.vocab_size, plen)
+                 for _ in range(n_req)]
+        waves = [np.stack(queue[i:i + batch])
+                 for i in range(0, n_req, batch)]
+        toks = torch.as_tensor(waves[0], dtype=torch.int32, device=dev)
+        with use_options(CompileOptions(target="cuda")):
+            def prefill():
+                return model.prefill(sparams, {"tokens": toks},
+                                     max_len=plen + glen)
+            prefill()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = prefill()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        stats["prefill_ms"] = statistics.median(times)
+        print(f"  prefill of {batch} x {plen} tokens (bf16): "
+              f"{stats['prefill_ms']:.2f} ms (median of 3, host clock, "
+              "synchronized)", flush=True)
+        tok = torch.argmax(logits[:, :cfg_a.vocab_size], -1).to(torch.int32)
+
+        def step(target):
+            with use_options(CompileOptions(target=target)):
+                return model.decode_step(sparams, tok, cache, plen)
+
+        step("cuda")
+        step("torch")
+        reset_counts()
+        logits_c = step("cuda")[0]
+        torch.cuda.synchronize()
+        sc = path_counts[f"{arch} decode step"] = counts()
+        per_step = {n: l for n, (l, _) in sc.items() if l}
+        print(f"  per-kernel launches per decode step: {per_step}",
+              flush=True)
+        if per_step != per_step_want or any(p for _, p in sc.values()):
+            fail(f"{arch} decode step launched {per_step}, want "
+                 f"{per_step_want}, with no plain call")
+        if not bool(torch.isfinite(logits_c).all()):
+            fail(f"{arch} decode step logits are not finite")
+        stats["decode_launches"] = per_step
+        for target in ("cuda", "torch"):
+            host_t, wall_t = host_and_wall(lambda: step(target))
+            busy, top = device_busy(lambda: step(target))
+            if busy <= 0:
+                fail("the profiler saw no kernel time in the decode step")
+            stats[f"decode_{target}"] = {
+                "host_ms": host_t, "wall_ms": wall_t,
+                "device_busy_ms": busy, "top_kernels_ms": top}
+            print(f"  decode step, {target} target: device busy "
+                  f"{busy:.3f} ms (profiler), host {host_t:.3f} ms, "
+                  f"synchronized wall {wall_t:.3f} ms (host share "
+                  f"{host_t / wall_t:.0%}, device busy {busy / wall_t:.0%})",
+                  flush=True)
+            print("    largest kernels (ms per step): " + "; ".join(
+                f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
+        del sparams, cache, logits, logits_c, model
+        torch.cuda.empty_cache()
+
+        cfg32 = dataclasses.replace(cfg_a, compute_dtype="float32")
+        model32 = build_model(cfg32)
+        params32 = serve_mod.cast_compute(model32.init(0, dev), "float32")
+        tokens32 = {}
+        for target in ("cuda", "torch"):
+            reset_counts()
+            t0 = time.perf_counter()
+            with use_options(CompileOptions(target=target)):
+                tokens32[target] = np.concatenate([
+                    serve_mod.generate(model32, params32, w, gen_len=glen,
+                                       max_len=plen + glen)
+                    for w in waves])
+            torch.cuda.synchronize()
+            c = counts()
+            if target == "cuda":
+                path_counts[f"{arch} f32"] = c
+                if any(c[n][0] == 0 for n in need) or \
+                        any(p for _, p in c.values()):
+                    fail(f"{arch} f32 generate launched {c} with plain "
+                         "calls")
+            print(f"  f32 generate on {target}: {tokens32[target].size} "
+                  f"tokens in {time.perf_counter() - t0:.1f} s", flush=True)
+        same = int(sum(np.array_equal(a, b) for a, b in
+                       zip(tokens32["cuda"], tokens32["torch"])))
+        print(f"  f32 greedy tokens, cuda vs torch target: {same} of "
+              f"{n_req} requests equal", flush=True)
+        if same != n_req:
+            fail(f"{arch}: f32 greedy tokens differ between the cuda and "
+                 "torch targets")
+        stats["f32_requests_equal"] = same
+        del params32, model32
+        torch.cuda.empty_cache()
+        return stats
+
+    L_rw = rw_cfg.n_layers
+    rwkv_stats = serve_recurrent(
+        10, "rwkv6-3b", RWKV_REQUESTS, rw_b, rw_t, RWKV_GEN,
+        ("rwkv6_scan", "rmsnorm"), {"rmsnorm": 2 * L_rw + 1})
+    n_groups, n_rem = divmod(rg_cfg.n_layers, len(rg_cfg.pattern))
+    n_a = n_groups * rg_cfg.pattern.count("A") + \
+        rg_cfg.pattern[:n_rem].count("A")
+    rg_stats = serve_recurrent(
+        11, "recurrentgemma-9b", RG_REQUESTS, rg_b, rg_t, RG_GEN,
+        ("rglru_scan", "rmsnorm", "flash_attention", "decode_attention"),
+        {"rglru_scan": rg_cfg.n_layers - n_a, "decode_attention": n_a,
+         "rmsnorm": 2 * rg_cfg.n_layers + 1})
+
+    # ---------------------------------------------------------------- 12
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:57"),
@@ -1076,6 +1429,10 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:120"),
+        "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6.cu",
+                       "src/repro/kernels/rwkv6.py:78"),
+        "rglru_scan": ("src/repro_torch/kernels/csrc/rglru.cu",
+                       "src/repro/kernels/rglru.py:69"),
     }
     kernels = []
     for name in wrappers:
@@ -1101,6 +1458,9 @@ def main() -> int:
                       "serve": serve_stats, "prefill_ms": prefill_ms,
                       "decode_step": step_stats,
                       "decode_step_launches": per_step,
+                      "recurrent_kernels": recurrent_kernel_stats,
+                      "serve_rwkv6_3b": rwkv_stats,
+                      "serve_recurrentgemma_9b": rg_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

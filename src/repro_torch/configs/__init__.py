@@ -12,11 +12,15 @@ import importlib
 # The configs ported so far; the others arrive with the model slices.
 ARCHS = (
     "qwen2_1_5b",
+    "rwkv6_3b",
+    "recurrentgemma_9b",
 )
 
 # CLI ids (assignment spelling) → module names
 ALIASES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

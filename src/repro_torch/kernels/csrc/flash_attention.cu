@@ -20,6 +20,11 @@
 // before it is loaded (the reference's pl.when), and positions past Skv are
 // masked, their V rows zeroed.  A row with no valid key writes 0.
 //
+// Head dims are multiples of 16 up to 256 (recurrentgemma's local
+// attention): at 256 the staged tiles take 214 KB of shared memory, inside
+// the 227 KB a block may opt in to, and each thread accumulates 4 x 16
+// output columns in registers.
+//
 // Bound: the FP32 FFMA rate outside the tensor cores for the unmasked
 // (q, k) pairs (4 * D operations each); bytes at HBM bandwidth for short
 // sequences.  wgmma / TMA tiles are later work.
@@ -187,7 +192,7 @@ static int launch(const void* q, const void* k, const void* v, void* out, int ba
                   int hkv, int sq, int skv, int d, const long* strides, int causal, int window,
                   float scale, float softcap, void* stream) {
   if (batch < 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq < 0 || skv < 0 || d <= 0 ||
-      d % 16 != 0 || d > 128 || (long)batch * hq > 65535L)
+      d % 16 != 0 || d > 256 || (long)batch * hq > 65535L)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0) return 0;
   const int group = hq / hkv;
@@ -205,6 +210,14 @@ static int launch(const void* q, const void* k, const void* v, void* out, int ba
     LAPIS_FA_CASE(6)
     LAPIS_FA_CASE(7)
     LAPIS_FA_CASE(8)
+    LAPIS_FA_CASE(9)
+    LAPIS_FA_CASE(10)
+    LAPIS_FA_CASE(11)
+    LAPIS_FA_CASE(12)
+    LAPIS_FA_CASE(13)
+    LAPIS_FA_CASE(14)
+    LAPIS_FA_CASE(15)
+    LAPIS_FA_CASE(16)
 #undef LAPIS_FA_CASE
   }
   return (int)cudaErrorInvalidValue;

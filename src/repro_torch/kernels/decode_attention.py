@@ -6,9 +6,10 @@ prefix of the (B, Hkv, S, hd) KV cache.  :func:`decode_attention`
 launches ``csrc/decode_attention.cu`` on CUDA tensors: the positions of
 each (row, KV head) are split into chunks, enough of them to give the
 card about two blocks per SM; a thread block sweeps one chunk's valid
-positions with 8 warps, each keeping an online softmax for the
-rep = Hq / Hkv query heads, merged in shared memory, and a second kernel
-merges the chunks of a row.  K and V may be broadcast over the batch with
+positions with 8 warps, each keeping an online softmax for a group of
+the rep = Hq / Hkv query heads (8 of them up to head dim 128, 4 above),
+merged in shared memory, and a second kernel merges the chunks of a
+row.  K and V may be broadcast over the batch with
 stride 0 (the chunked prefill hands C query rows one gathered row);
 the kernel reads them through their strides, so nothing is copied.
 On CPU tensors the wrapper runs the plain version (``ref.decode_attention``).
@@ -22,13 +23,12 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_REP = 8          # query heads per KV head the kernel keeps in registers
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 SPLIT_BLOCKS = 2 * 132   # blocks to aim for: two per H100 SM
 MIN_CHUNK = 128          # positions a block sweeps at the least
 _FNS = {torch.float32: "lapis_decode_attention_f32",
         torch.bfloat16: "lapis_decode_attention_bf16"}
-_LAUNCHERS: dict = {}     # dtype -> ctypes function
+_LAUNCHERS: dict = {}     # dtype (or "heads_per_block") -> ctypes function
 
 
 def decode_attention_kernel() -> _build.KernelSource:
@@ -50,9 +50,24 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
+def heads_per_block(d: int) -> int:
+    """The query heads one block keeps in registers at head dim ``d``,
+    asked of ``csrc/decode_attention.cu``, whose launcher picks them
+    (here it sizes the split plan's grid)."""
+    fn = _LAUNCHERS.get("heads_per_block")
+    if fn is None:
+        fn = _build.load(decode_attention_kernel()) \
+            .lapis_decode_attention_heads_per_block
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _LAUNCHERS["heads_per_block"] = fn
+    return fn(d)
+
+
 def split_plan(rows: int, positions: int) -> tuple:
     """(number of chunks, positions per chunk) for ``rows`` (row, KV
-    head) pairs over ``positions`` cached positions: chunks of at least
+    head, query-head group) triples over ``positions`` cached positions:
+    chunks of at least
     ``MIN_CHUNK`` positions (a multiple of the 32 a block scores per
     sweep), as many as bring the grid to about ``SPLIT_BLOCKS``."""
     def ceil(a, b):
@@ -73,10 +88,9 @@ def _check(q, k_cache, v_cache, lengths) -> None:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    if Hq // Hkv > MAX_REP or D > MAX_HEAD_DIM:
-        raise ValueError(f"decode_attention: {Hq // Hkv} query heads per KV "
-                         f"head (at most {MAX_REP}) and head dim {D} (at "
-                         f"most {MAX_HEAD_DIM})")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {D} (at most "
+                         f"{MAX_HEAD_DIM})")
     if q.dtype not in _FNS or k_cache.dtype != q.dtype or \
             v_cache.dtype != q.dtype or lengths.dtype != torch.int32:
         raise TypeError(f"decode_attention: q {q.dtype}, caches "
@@ -111,7 +125,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if out.numel() == 0:
         return out
     rep = Hq // Hkv
-    n_splits, chunk = split_plan(B * Hkv, S)
+    groups = -(-rep // heads_per_block(D))
+    n_splits, chunk = split_plan(B * Hkv * groups, S)
     part_ml = part_acc = None
     if n_splits > 1:    # each chunk's (m, l) and unnormalized acc, in f32
         part_ml = torch.empty((B * Hkv, n_splits, rep, 2),

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_HEAD_DIM = 128       # head dims 16, 32, ..., 128
+MAX_HEAD_DIM = 256       # head dims 16, 32, ..., 256
 MAX_BATCH_HEADS = 65535  # grid.y limit
 _FNS = {torch.float32: "lapis_flash_attention_f32",
         torch.bfloat16: "lapis_flash_attention_bf16"}

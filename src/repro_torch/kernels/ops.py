@@ -10,12 +10,15 @@ Each ``kk.*`` op ported so far gets two implementations (the
               whose backward is derived from the plain version.
 
 Model code calls the model-facing wrappers (``attention``,
-``decode_attention``, ``rmsnorm``), which ask the ambient
-``CompileOptions``' backend whether it wants kernels, as the reference
-does.  The reference sends attention above ``CHUNKED_ATTN_THRESHOLD``
-on its library path to ``kernels/chunked.py``; that module is not ported
-yet, so the ``torch`` target computes every length with the dense plain
-version (the same values, more memory above 2048 positions).
+``decode_attention``, ``rmsnorm``, ``rwkv6``, ``rglru``), which ask the
+ambient ``CompileOptions``' backend whether it wants kernels, as the
+reference does.  The scans return their final state beside y (the
+reference's wrappers return y alone and its models run a second, plain
+scan for the state).  The reference sends attention above
+``CHUNKED_ATTN_THRESHOLD`` on its library path to ``kernels/chunked.py``;
+that module is not ported yet, so the ``torch`` target computes every
+length with the dense plain version (the same values, more memory above
+2048 positions).
 
 The sparse ``kk.spmv`` / ``kk.spmm`` take the composite value
 ``sparse.pack`` made (a ``CsrMatrix``) and skip the autograd wrapper, as
@@ -39,7 +42,9 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import paged_kv as _pk
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import rwkv6 as _rw
 from repro_torch.kernels import spmm as _spmm
 from repro_torch.kernels import spmv as _sp
 
@@ -51,7 +56,8 @@ from repro_torch.kernels import spmv as _sp
 class _Kernelized(torch.autograd.Function):
     """Forward runs ``kernel``; backward differentiates ``plain`` at the
     saved inputs (a kernelized backward is later work, as in the
-    reference)."""
+    reference).  An input may be None (an absent initial state), and the
+    output a tuple (a scan's y and final state)."""
 
     @staticmethod
     def forward(ctx, kernel, plain, *args):
@@ -60,15 +66,21 @@ class _Kernelized(torch.autograd.Function):
         return kernel(*args)
 
     @staticmethod
-    def backward(ctx, grad):
-        args = [a.detach().requires_grad_(need) for a, need in
-                zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
-        wanted = [a for a in args if a.requires_grad]
+    def backward(ctx, *grads):
+        args = [None if a is None else a.detach().requires_grad_(need)
+                for a, need in zip(ctx.saved_tensors,
+                                   ctx.needs_input_grad[2:])]
+        wanted = [a for a in args if a is not None and a.requires_grad]
         with torch.enable_grad():
             out = ctx.plain(*args)
-        grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (None, None, *(next(grads) if a.requires_grad else None
-                              for a in args))
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        grads_in = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True))
+        return (None, None, *(next(grads_in) if a is not None and
+                              a.requires_grad else None for a in args))
 
 
 # ---------------------------------------------------------------------------
@@ -178,11 +190,41 @@ def rmsnorm(x, weight, *, eps=1e-6,
     return ref.rmsnorm(x, weight, eps=eps)
 
 
+def rwkv6(r, k, v, w, u, *, state=None,
+          options: Optional[CompileOptions] = None):
+    """The WKV6 scan → (y, final state): the kernel where the backend
+    wants kernels, else the plain version."""
+    options = options or current_options()
+    if _use_kernels(options):
+        return _Kernelized.apply(_rw.rwkv6_scan, ref.rwkv6_scan,
+                                 r, k, v, w, u, state)
+    return ref.rwkv6_scan(r, k, v, w, u, state)
+
+
+def rglru(x, r_gate, i_gate, log_a_param, *, state=None,
+          options: Optional[CompileOptions] = None):
+    """The RG-LRU scan → (y, final h): the kernel where the backend wants
+    kernels, else the plain version."""
+    options = options or current_options()
+    if _use_kernels(options):
+        return _Kernelized.apply(_rg.rglru_scan, ref.rglru_scan,
+                                 x, r_gate, i_gate, log_a_param, state)
+    return ref.rglru_scan(x, r_gate, i_gate, log_a_param, state)
+
+
 # registry entries for the model-facing ops too (pipeline completeness)
 register("kk.attention", "torch")(
     lambda q, k, v, *, tiling=None, **kw: ref.attention(q, k, v, **kw))
 register("kk.attention", "cuda")(
     lambda q, k, v, *, tiling=None, **kw: _fa.flash_attention(q, k, v, **kw))
+register("kk.rwkv6_scan", "torch")(
+    lambda r, k, v, w, u, *, tiling=None: ref.rwkv6_scan(r, k, v, w, u)[0])
+register("kk.rwkv6_scan", "cuda")(
+    lambda r, k, v, w, u, *, tiling=None: _rw.rwkv6_scan(r, k, v, w, u)[0])
+register("kk.rglru_scan", "torch")(
+    lambda x, r, i, la, *, tiling=None: ref.rglru_scan(x, r, i, la)[0])
+register("kk.rglru_scan", "cuda")(
+    lambda x, r, i, la, *, tiling=None: _rg.rglru_scan(x, r, i, la)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -190,10 +232,12 @@ register("kk.attention", "cuda")(
 # ---------------------------------------------------------------------------
 
 def serving_kernel_sources() -> list:
-    """The kernel libraries the serving path launches besides the page
-    gather: decode attention, RMSNorm and flash attention."""
+    """The kernel libraries the serving paths launch besides the page
+    gather: decode attention, RMSNorm, flash attention and the two
+    recurrent scans."""
     return [_da.decode_attention_kernel(), _rn.rmsnorm_kernel(),
-            _fa.flash_attention_kernel()]
+            _fa.flash_attention_kernel(), _rw.rwkv6_kernel(),
+            _rg.rglru_kernel()]
 
 
 def kernel_sources(graph) -> list:

@@ -1,5 +1,6 @@
 """Plain torch versions of the kernels in this package (the reference's
-``kernels/ref.py``: dense matmul, sparse, attention and RMSNorm parts):
+``kernels/ref.py``: dense matmul, sparse, attention, RMSNorm and the
+RWKV6 and RG-LRU scans):
 the CPU path of each wrapper, the oracle the kernels are held against on
 the card, and the library (``torch``) registry implementations.  Mixed
 operand dtypes promote first, as ``jnp.matmul`` does (``torch.matmul``
@@ -133,3 +134,73 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): the data-dependent decay WKV scan
+# ---------------------------------------------------------------------------
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state: Optional[torch.Tensor] = None) -> tuple:
+    """WKV6 recurrence, one time step at a time in f32.
+
+    r, k, w: (B, T, H, K); v: (B, T, H, V); u: (H, K);
+    state: (B, H, K, V) or None (zeros).
+    Returns (y: (B, T, H, V) in v's dtype, final state (B, H, K, V) f32).
+
+      y_t  = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+      S_t  = diag(w_t) S_{t-1} + k_t v_tᵀ
+    """
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B,H,K,V)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((B, 0, H, V), dtype=torch.float32, device=r.device))
+    return y.to(v.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (recurrentgemma / Griffin)
+# ---------------------------------------------------------------------------
+
+RGLRU_C = 8.0
+
+
+def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
+               log_a_param: torch.Tensor,
+               state: Optional[torch.Tensor] = None) -> tuple:
+    """Real-Gated Linear Recurrent Unit, one time step at a time in f32.
+
+    x, r_gate, i_gate: (B, T, D) (gates are raw pre-sigmoid);
+    log_a_param: (D,) (Λ, pre-softplus); state: (B, D) or None (zeros).
+    Returns (h: (B, T, D) in x's dtype, final h (B, D) f32).
+
+      a_t = exp(-c · softplus(Λ) · σ(r_t))
+      h_t = a_t ⊙ h_{t-1} + sqrt(max(1 − a_t², 1e-12)) ⊙ (σ(i_t) ⊙ x_t)
+    """
+    B, T, D = x.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    xf, rf, itf = x.float(), r_gate.float(), i_gate.float()
+    log_a = -RGLRU_C * torch.nn.functional.softplus(log_a_param.float())
+    hs = []
+    for t in range(T):
+        la_r = log_a[None, :] * torch.sigmoid(rf[:, t])
+        # sqrt(1 - a²) computed stably: a² = exp(2 log a σ(r))
+        scale = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la_r),
+                                       min=1e-12))
+        h = torch.exp(la_r) * h + scale * (torch.sigmoid(itf[:, t])
+                                           * xf[:, t])
+        hs.append(h)
+    y = (torch.stack(hs, dim=1) if hs else
+         torch.zeros((B, 0, D), dtype=torch.float32, device=x.device))
+    return y.to(x.dtype), h

@@ -1,10 +1,16 @@
 """Serving paths: prefill and single-token decode — the port of the
-reference's ``models/serve.py``, dense family.
+reference's ``models/serve.py``: the dense, rwkv and hybrid families
+(MoE and encoder-decoder arrive with their slices).
 
 Cache layouts:
 
-* contiguous: ``{"kv": {"k", "v"[, "k_scale", "v_scale"]}}``, each
-  ``(L, B, Hkv, S, hd)`` stacked over layers, as in the reference;
+* contiguous (dense): ``{"kv": {"k", "v"[, "k_scale", "v_scale"]}}``,
+  each ``(L, B, Hkv, S, hd)`` stacked over layers, as in the reference;
+* rwkv: ``{"shift1", "shift2": (L, B, D), "wkv": (L, B, H, K, V) f32}``;
+* hybrid, per pattern slot of ``groups`` (G groups) and ``rem`` (1):
+  R — ``{"conv": (G, B, W-1, Dr) f32, "h": (G, B, Dr) f32}``; A — a
+  ring buffer ``{"k", "v": (G, B, Hkv, W, hd)}`` over the local window,
+  ``W = min(window, max_len)``, position p at slot p % W;
 * block-paged: ``{"k": [pool per layer], "v": [...], ...}``, each pool
   ``(n_blocks, Hkv, block_size, hd)``.  The reference stacks the layers
   into one ``(L, n_blocks, ...)`` array that its jitted decode step
@@ -23,17 +29,31 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.layers import apply_embed, apply_norm
-from repro_torch.models.transformer import (_embed_input, _lm_head,
-                                            _positions_for, layer_params)
+from repro_torch.models import rglru_block as rg_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.layers import apply_embed, apply_norm, cdt
+from repro_torch.models.transformer import (FAMILIES, _embed_input,
+                                            _lm_head, _positions_for,
+                                            layer_params, stack_trees, take)
 
 
-def _dense_only(cfg) -> None:
-    if cfg.family != "dense":
+def _served(cfg, families=FAMILIES) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"the port serves the dense family so far, not {cfg.family}")
+            f"the port serves the {'/'.join(families)} families so far, "
+            f"not {cfg.family}")
+
+
+def _group_patterns(cfg) -> list:
+    """The hybrid's stacked trees, their group counts and patterns:
+    ``("groups", G, pattern)`` and, for a remainder,
+    ``("rem", 1, pattern[:rem])``."""
+    n_groups, rem = divmod(cfg.n_layers, len(cfg.pattern))
+    return [("groups", n_groups, cfg.pattern)] + \
+        ([("rem", 1, cfg.pattern[:rem])] if rem else [])
 
 
 # ---------------------------------------------------------------------------
@@ -42,10 +62,43 @@ def _dense_only(cfg) -> None:
 
 def init_cache(cfg, batch: int, max_len: int, *, quantized: bool = False,
                device="cuda") -> Dict[str, Any]:
-    _dense_only(cfg)
+    _served(cfg)
+    L = cfg.n_layers
+    if cfg.family == "rwkv":
+        H, hd, D = cfg.n_rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+        return {
+            "shift1": torch.zeros((L, batch, D), dtype=cdt(cfg),
+                                  device=device),
+            "shift2": torch.zeros((L, batch, D), dtype=cdt(cfg),
+                                  device=device),
+            "wkv": torch.zeros((L, batch, H, hd, hd), dtype=torch.float32,
+                               device=device),
+        }
+    if cfg.family == "hybrid":
+        W = min(cfg.window, max_len)
+        out = {}
+        for key, n, pattern in _group_patterns(cfg):
+            c = {}
+            for i, kind in enumerate(pattern):
+                if kind == "R":
+                    c[f"b{i}_R"] = {
+                        "conv": torch.zeros((n, batch, cfg.conv_width - 1,
+                                             cfg.rglru_dim),
+                                            dtype=torch.float32,
+                                            device=device),
+                        "h": torch.zeros((n, batch, cfg.rglru_dim),
+                                         dtype=torch.float32, device=device)}
+                else:
+                    shape = (n, batch, cfg.n_kv_heads, W, cfg.head_dim)
+                    c[f"b{i}_A"] = {
+                        "k": torch.zeros(shape, dtype=cdt(cfg),
+                                         device=device),
+                        "v": torch.zeros(shape, dtype=cdt(cfg),
+                                         device=device)}
+            out[key] = c
+        return out
     one = attn.init_kv_cache(cfg, batch, max_len, quantized=quantized,
                              device=device)
-    L = cfg.n_layers
     return {"kv": {k: a[None].expand((L,) + tuple(a.shape)).clone()
                    for k, a in one.items()}}
 
@@ -55,8 +108,12 @@ def init_paged_cache(cfg, n_blocks: int, block_size: int, *,
                      ) -> Dict[str, list]:
     """Block-paged KV cache for the serving engine: one pool per layer and
     key, all sharing one page table (every layer of a slot uses the same
-    block ids — the per-layer pools are parallel arenas)."""
-    _dense_only(cfg)
+    block ids — the per-layer pools are parallel arenas).  The recurrent
+    families keep no KV cache to page and raise, as the reference does."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged KV cache supports dense/moe families, not {cfg.family}")
+    _served(cfg, ("dense",))
     pools = [attn.init_paged_kv_cache(cfg, n_blocks, block_size,
                                       quantized=quantized, device=device)
              for _ in range(cfg.n_layers)]
@@ -98,7 +155,7 @@ def paged_decode_step(params, token: torch.Tensor, cache: Dict[str, list],
     slot — inactive slots pass any token and write the scrap block);
     table: (B, max_blocks) int32; lengths: (B,) int32 per-slot counts.
     Returns (logits (B, V), the new per-layer pools)."""
-    _dense_only(cfg)
+    _served(cfg, ("dense",))
     x = apply_embed(params["embed"], token[:, None], cfg)[:, 0]
     new: Dict[str, list] = {k: [] for k in cache}
     for i in range(cfg.n_layers):
@@ -126,7 +183,7 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, start: int,
     pre-allocated.  Non-final chunks must be block-aligned (the engine
     enforces ``prefill_chunk % block_size == 0``); the final chunk may
     end mid-block.  Returns (last-token logits (V,), the new pools)."""
-    _dense_only(cfg)
+    _served(cfg, ("dense",))
     x = apply_embed(params["embed"], tokens[None], cfg)[0]     # (C, D)
     new: Dict[str, list] = {k: [] for k in cache}
     for i in range(cfg.n_layers):
@@ -150,13 +207,28 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, start: int,
 
 def prefill(params, batch: dict, cfg, *, max_len: int,
             quantized: bool = False) -> Tuple[torch.Tensor, dict]:
-    """Run the full prompt; return (last-token logits, decode cache with
-    the prompt's entries, allocated at ``max_len``)."""
-    _dense_only(cfg)
+    """Run the full prompt; return (last-token logits, decode cache): the
+    prompt's KV entries allocated at ``max_len`` (dense), or the final
+    recurrent states and the local-attention rings (rwkv, hybrid)."""
+    _served(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_input(params, batch, cfg)
     positions = _positions_for(cfg, B, S, batch, x.device)
+    if cfg.family == "rwkv":
+        x, cache = _prefill_rwkv(params, x, cfg)
+    elif cfg.family == "hybrid":
+        x, cache = _prefill_hybrid(params, x, cfg, positions,
+                                   min(cfg.window, max_len))
+    else:
+        x, cache = _prefill_dense(params, x, cfg, positions, max_len,
+                                  quantized)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _lm_head(params, x[:, -1:, :], cfg)[:, 0], cache
+
+
+def _prefill_dense(params, x, cfg, positions, max_len, quantized):
+    S = x.shape[1]
     per_layer = []
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
@@ -172,16 +244,81 @@ def prefill(params, batch: dict, cfg, *, max_len: int,
     kv_stack = {k: torch.nn.functional.pad(
         torch.stack([kv[k] for kv in per_layer]), (0, 0, 0, pad))
         for k in per_layer[0]}
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _lm_head(params, x[:, -1:, :], cfg)[:, 0], {"kv": kv_stack}
+    return x, {"kv": kv_stack}
+
+
+def _prefill_rwkv(params, x, cfg):
+    states = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = apply_norm(lp["ln1"], x, cfg.norm)
+        tm, (sh1, wkv) = rwkv_mod.apply_time_mix(lp["time_mix"], h, cfg,
+                                                 return_state=True)
+        x = x + tm
+        h = apply_norm(lp["ln2"], x, cfg.norm)
+        cm, sh2 = rwkv_mod.apply_channel_mix(lp["channel_mix"], h, cfg,
+                                             return_state=True)
+        x = x + cm
+        states.append({"shift1": sh1, "shift2": sh2, "wkv": wkv})
+    return x, stack_trees(states)
+
+
+def _prefill_hybrid(params, x, cfg, positions, W):
+    S = x.shape[1]
+    cache = {}
+    for key, n, pattern in _group_patterns(cfg):
+        groups = []
+        for g in range(n):
+            gp = layer_params(params, g, key)
+            sts = {}
+            for i, kind in enumerate(pattern):
+                name = f"b{i}_{kind}"
+                lp = gp[name]
+                h = apply_norm(lp["ln1"], x, cfg.norm)
+                if kind == "R":
+                    r, st = rg_mod.apply_recurrent_block(
+                        lp["temporal"], h, cfg, return_state=True)
+                    x = x + r
+                    sts[name] = {"conv": st["conv"].float(), "h": st["h"]}
+                else:
+                    a, kv = attn.apply_attention_prefill(
+                        lp["temporal"], h, cfg, positions=positions,
+                        window=cfg.window)
+                    x = x + a
+                    sts[name] = {"k": _ring_from_prefill(kv["k"], S, W),
+                                 "v": _ring_from_prefill(kv["v"], S, W)}
+                h = apply_norm(lp["ln2"], x, cfg.norm)
+                x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
+            groups.append(sts)
+        cache[key] = stack_trees(groups)
+    return x, cache
+
+
+def _ring_from_prefill(k: torch.Tensor, S: int, W: int) -> torch.Tensor:
+    """(B, Hkv, S, hd) → ring buffer (B, Hkv, W, hd) holding the last W
+    entries at slots p % W (absolute position p)."""
+    if S <= W:
+        return torch.nn.functional.pad(k, (0, 0, 0, W - S))
+    return torch.roll(k[:, :, S - W:, :], shifts=S % W, dims=2)
 
 
 def decode_step(params, token: torch.Tensor, cache: dict, length: int,
                 cfg) -> Tuple[torch.Tensor, dict]:
     """One decode step.  token: (B,) int32; length: tokens already in
     context.  Returns (logits (B, V), new cache)."""
-    _dense_only(cfg)
+    _served(cfg)
     x = apply_embed(params["embed"], token[:, None], cfg)[:, 0]
+    if cfg.family == "rwkv":
+        x, new = _decode_rwkv(params, x, cache, cfg)
+    elif cfg.family == "hybrid":
+        x, new = _decode_hybrid(params, x, cache, length, cfg)
+    else:
+        x, new = _decode_dense(params, x, cache, length, cfg)
+    x = apply_norm(params["final_norm"], x[:, None, :], cfg.norm)
+    return _lm_head(params, x, cfg)[:, 0], new
+
+
+def _decode_dense(params, x, cache, length, cfg):
     per_layer = []
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
@@ -193,7 +330,72 @@ def decode_step(params, token: torch.Tensor, cache: dict, length: int,
         h = apply_norm(lp["ln2"], x[:, None, :], cfg.norm)
         x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)[:, 0]
         per_layer.append(kv)
-    x = apply_norm(params["final_norm"], x[:, None, :], cfg.norm)
-    new = {"kv": {k: torch.stack([kv[k] for kv in per_layer])
-                  for k in per_layer[0]}}
-    return _lm_head(params, x, cfg)[:, 0], new
+    return x, {"kv": stack_trees(per_layer)}
+
+
+def _decode_rwkv(params, x, cache, cfg):
+    states = []
+    for i in range(cfg.n_layers):
+        lp, st = layer_params(params, i), take(cache, i)
+        h = apply_norm(lp["ln1"], x[:, None, :], cfg.norm)
+        tm, (sh1, wkv) = rwkv_mod.apply_time_mix(
+            lp["time_mix"], h, cfg, shift_state=st["shift1"],
+            wkv_state=st["wkv"])
+        x = x + tm[:, 0]
+        h = apply_norm(lp["ln2"], x[:, None, :], cfg.norm)
+        cm, sh2 = rwkv_mod.apply_channel_mix(lp["channel_mix"], h, cfg,
+                                             shift_state=st["shift2"])
+        x = x + cm[:, 0]
+        states.append({"shift1": sh1, "shift2": sh2, "wkv": wkv})
+    return x, stack_trees(states)
+
+
+def _decode_hybrid(params, x, cache, length, cfg):
+    new = {}
+    for key, n, pattern in _group_patterns(cfg):
+        groups = []
+        for g in range(n):
+            gp, gst = layer_params(params, g, key), take(cache[key], g)
+            nst = {}
+            for i, kind in enumerate(pattern):
+                name = f"b{i}_{kind}"
+                lp, st = gp[name], gst[name]
+                h = apply_norm(lp["ln1"], x[:, None, :], cfg.norm)
+                if kind == "R":
+                    r, rst = rg_mod.apply_recurrent_block(
+                        lp["temporal"], h, cfg, state=st)
+                    x = x + r[:, 0]
+                    nst[name] = {"conv": rst["conv"].float(),
+                                 "h": rst["h"]}
+                else:
+                    a, nst[name] = _ring_decode(lp["temporal"], h[:, 0],
+                                                cfg, st, length)
+                    x = x + a
+                h = apply_norm(lp["ln2"], x[:, None, :], cfg.norm)
+                x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)[:, 0]
+            groups.append(nst)
+        new[key] = stack_trees(groups)
+    return x, new
+
+
+def _ring_decode(p: dict, x: torch.Tensor, cfg, st: dict, length: int
+                 ) -> Tuple[torch.Tensor, dict]:
+    """Sliding-window decode against a ring-buffer cache (B, Hkv, W, hd).
+    Absolute RoPE is applied at insert time, so ring order is irrelevant
+    to the softmax; every valid slot is inside the window, so the decode
+    kernel runs with ``min(length + 1, W)`` valid slots and no window.
+    Returns (out (B, D), the new ring), the old ring untouched."""
+    B = x.shape[0]
+    W = st["k"].shape[2]
+    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    q, k, v = attn._project_qkv(p, x[:, None, :], cfg, pos)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]          # (B, H*, hd)
+    slot = length % W
+    nk, nv = st["k"].clone(), st["v"].clone()
+    nk[:, :, slot] = k.to(nk.dtype)
+    nv[:, :, slot] = v.to(nv.dtype)
+    lengths = torch.full((B,), min(length + 1, W), dtype=torch.int32,
+                         device=x.device)
+    out = kops.decode_attention(q, nk, nv, lengths)
+    return out.reshape(B, cfg.q_dim) @ p["wo"].to(x.dtype), \
+        {"k": nk, "v": nv}

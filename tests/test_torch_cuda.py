@@ -22,7 +22,9 @@ from repro_torch.kernels import spmv as spmv_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import rglru as rg_mod
 from repro_torch.kernels import rmsnorm as rn_mod
+from repro_torch.kernels import rwkv6 as rw_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -265,7 +267,9 @@ def _decode_case(rng, b, hq, hkv, s, d, dtype, lengths=None):
 @pytest.mark.parametrize("hq,hkv,s,d,window", [
     (4, 4, 100, 32, None), (8, 2, 128, 32, None), (4, 1, 90, 32, 33),
     (2, 2, 64, 32, 16), (12, 2, 2048, 128, None), (12, 2, 544, 128, 100),
-    (4, 2, 37, 16, None), (6, 1, 300, 64, None)])
+    (4, 2, 37, 16, None), (6, 1, 300, 64, None), (16, 1, 2048, 256, None),
+    (16, 1, 300, 256, 64), (12, 1, 100, 256, None), (20, 2, 128, 64, None),
+    (9, 1, 70, 192, None)])
 def test_decode_attention_kernel_matches_plain(card, rng, hq, hkv, s, d,
                                                window, dtype):
     q, k, v, lengths = _decode_case(rng, 3, hq, hkv, s, d, dtype)
@@ -310,6 +314,12 @@ def test_decode_attention_kernel_reads_a_stride0_batch(card, rng, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def test_decode_attention_heads_per_block_comes_from_the_source(card):
+    """The split plan's head-group size is the CUDA launcher's own."""
+    assert [da_mod.heads_per_block(d) for d in (16, 64, 128, 192, 256)] == \
+        [8, 8, 8, 4, 4]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,sq,skv,causal,window,d,softcap", [
     (4, 4, 64, 64, True, None, 32, None),
@@ -320,7 +330,10 @@ def test_decode_attention_kernel_reads_a_stride0_batch(card, rng, dtype):
     (2, 2, 48, 48, True, None, 16, 30.0),
     (12, 2, 2048, 2048, True, None, 128, None),
     (12, 2, 300, 300, True, None, 128, 50.0),
-    (4, 2, 130, 70, True, None, 64, None)])
+    (4, 2, 130, 70, True, None, 64, None),
+    (16, 1, 2040, 2040, True, 2048, 256, None),
+    (16, 1, 300, 300, True, 100, 256, None),
+    (4, 2, 97, 97, True, None, 192, 30.0)])
 def test_flash_attention_kernel_matches_plain(card, rng, hq, hkv, sq, skv,
                                               causal, window, d, softcap,
                                               dtype):
@@ -352,9 +365,10 @@ def test_flash_attention_kernel_reads_transposed_views(card, rng):
 
 
 def test_serving_kernels_refuse_what_they_do_not_take(card, rng):
-    q, k, v, lens = _decode_case(rng, 2, 18, 2, 64, 128, torch.float32)
-    with pytest.raises(ValueError):     # 9 query heads per KV head
+    q, k, v, lens = _decode_case(rng, 2, 4, 2, 64, 320, torch.float32)
+    with pytest.raises(ValueError):     # head dim 320
         da_mod.decode_attention(q, k, v, lens)
+    q, k, v, lens = _decode_case(rng, 2, 8, 2, 64, 128, torch.float32)
     with pytest.raises(TypeError):
         da_mod.decode_attention(q[:, :4], k, v, lens.long())
     with pytest.raises(ValueError):     # head dim 40
@@ -408,3 +422,158 @@ def test_full_width_paged_decode_step_cuda_matches_torch(card):
         assert da_mod.decode_attention.plain_calls == 0
     err = float((out["cuda"] - out["torch"]).abs().max())
     assert err <= 0.05 * float(out["torch"].abs().max()), err
+
+
+def test_recurrentgemma_ring_decode_attention(card, rng):
+    """The hybrid's ring decode: 4 rows, 16 query heads over one KV head
+    of 256, a 2048-slot ring read with min(length + 1, W) valid slots and
+    no window, before and after the wrap."""
+    for n_valid in (2041, 2048):
+        q, k, v, lens = _decode_case(rng, 4, 16, 1, 2048, 256,
+                                     torch.bfloat16, [n_valid] * 4)
+        got = da_mod.decode_attention(q, k, v, lens)
+        want = ref.decode_attention(q, k, v, lens)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def _scan_tensors(rng, shapes, dtype, w_range=None):
+    out = []
+    for i, shape in enumerate(shapes):
+        if w_range is not None and i == 3:    # the decay w in (lo, hi)
+            lo, hi = w_range
+            a = lo + (hi - lo) * rng.random(shape)
+        else:
+            a = rng.standard_normal(shape) * (0.1 if i == 4 else 0.5)
+        out.append(torch.from_numpy(a.astype(np.float32)).to("cuda", dtype))
+    return out
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,k,v,w_range", [
+    (2, 16, 3, 8, 16, (0.5, 0.9)), (2, 37, 3, 8, 16, (0.5, 0.9)),
+    (2, 64, 3, 8, 16, (0.5, 0.9)), (3, 9, 2, 100, 48, (0.5, 0.9)),
+    (4, 512, 40, 64, 64, (0.97, 0.999)), (1, 70, 2, 128, 256, (0.5, 0.9)),
+    (2, 9, 2, 16, 5, (0.5, 0.9))])
+def test_rwkv6_kernel_matches_plain(card, rng, b, t, h, k, v, w_range, dtype,
+                                   with_state):
+    """The sweep shapes of tests/test_kernels.py, the rwkv6-3b prefill's
+    (4 x 512 tokens, 40 heads x 64, decays near 1), the largest state the
+    wrapper takes (K 128 x V 256: 1024 threads a block) and a block of
+    fewer than 32 threads (V 5), from zeros or a given state, the final
+    state included."""
+    r, kk, vv, w, u = _scan_tensors(
+        rng, [(b, t, h, k), (b, t, h, k), (b, t, h, v), (b, t, h, k),
+              (h, k)], dtype, w_range)
+    s0 = (torch.from_numpy(rng.standard_normal((b, h, k, v))
+                           .astype(np.float32)).cuda() if with_state
+          else None)
+    before = (rw_mod.rwkv6_scan.launches, rw_mod.rwkv6_scan.plain_calls)
+    y, s = rw_mod.rwkv6_scan(r, kk, vv, w, u, s0)
+    torch.cuda.synchronize()
+    assert (rw_mod.rwkv6_scan.launches, rw_mod.rwkv6_scan.plain_calls) == \
+        (before[0] + 1, before[1])
+    want_y, want_s = ref.rwkv6_scan(r, kk, vv, w, u, s0)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    tol = _TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)
+
+
+def test_rwkv6_kernel_reads_strided_inputs(card, rng):
+    """r, k, v, w sliced out of one wider projection: read in place."""
+    wide = _randn(rng, (2, 20, 4 * 3 * 16))
+    r, k, v, w = (wide[..., i * 48:(i + 1) * 48].reshape(2, 20, 3, 16)
+                  for i in range(4))
+    w = torch.sigmoid(w)
+    u = _randn(rng, (3, 16), 0.1)
+    assert r.stride(1) == 192
+    got = rw_mod.rwkv6_scan(r, k, v, w, u)
+    want = rw_mod.rwkv6_scan(*(t.contiguous() for t in (r, k, v, w)), u)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d", [(2, 16, 32), (2, 29, 48), (2, 64, 128),
+                                   (4, 2040, 4096), (4, 1, 4096),
+                                   (3, 11, 4099)])
+def test_rglru_kernel_matches_plain(card, rng, b, t, d, dtype, with_state):
+    """The sweep shapes of tests/test_kernels.py and recurrentgemma-9b's
+    prefill (4 x 2040 tokens, 4096 channels) and decode step (T = 1 from
+    the cached h)."""
+    x, r, i = (_randn(rng, (b, t, d), dtype=dtype) for _ in range(3))
+    la = _randn(rng, (d,), dtype=dtype)
+    h0 = _randn(rng, (b, d)) if with_state else None
+    before = (rg_mod.rglru_scan.launches, rg_mod.rglru_scan.plain_calls)
+    y, h = rg_mod.rglru_scan(x, r, i, la, h0)
+    torch.cuda.synchronize()
+    assert (rg_mod.rglru_scan.launches, rg_mod.rglru_scan.plain_calls) == \
+        (before[0] + 1, before[1])
+    want_y, want_h = ref.rglru_scan(x, r, i, la, h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = _TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(card, rng):
+    x = _randn(rng, (2, 4, 8))
+    with pytest.raises(TypeError):      # a bf16 gate beside f32 x
+        rg_mod.rglru_scan(x, x.bfloat16(), x, _randn(rng, (8,)))
+    with pytest.raises(TypeError):      # an f32 log_a beside bf16 inputs
+        rg_mod.rglru_scan(*(x.bfloat16(),) * 3, _randn(rng, (8,)))
+    with pytest.raises(ValueError):     # log_a of the wrong width
+        rg_mod.rglru_scan(x, x, x, _randn(rng, (9,)))
+    r = _randn(rng, (1, 3, 2, 130))
+    with pytest.raises(ValueError):     # K = 130 state rows per thread
+        rw_mod.rwkv6_scan(r, r, r, r, _randn(rng, (2, 130)))
+    r = _randn(rng, (1, 3, 2, 16))
+    with pytest.raises(TypeError):      # a bf16 state
+        rw_mod.rwkv6_scan(r, r, r, r, _randn(rng, (2, 16)),
+                          torch.zeros((1, 2, 16, 16), device="cuda",
+                                      dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("arch,layers", [("rwkv6-3b", 2),
+                                         ("recurrentgemma-9b", 4)])
+def test_recurrent_families_serve_through_the_kernels(card, arch, layers):
+    """Both families at their published widths (depth cut; seeded
+    weights; f32 compute): the wave loop's greedy tokens on the cuda
+    target equal the torch target's, every scan and attention step on
+    the card going through the kernels and none through a plain
+    version.  The hybrid's 4 layers are one (R, R, A) group and an R
+    remainder."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.options import use_options
+    from repro_torch.launch.serve import cast_compute, generate
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    params = cast_compute(model.init(0, "cuda"), "float32")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 40))
+    wrappers = (rw_mod.rwkv6_scan, rg_mod.rglru_scan, rn_mod.rmsnorm,
+                fa_mod.flash_attention, da_mod.decode_attention)
+    out = {}
+    for target in ("cuda", "torch"):
+        for w in wrappers:
+            w.launches = w.plain_calls = 0
+        with use_options(CompileOptions(target=target)):
+            out[target] = generate(model, params, prompts, gen_len=6,
+                                   max_len=46)
+        torch.cuda.synchronize()
+        assert all(w.plain_calls == 0 for w in wrappers)
+        launched = {w.__name__ for w in wrappers if w.launches}
+        if target == "torch":
+            assert not launched
+        elif arch == "rwkv6-3b":
+            assert launched == {"rwkv6_scan", "rmsnorm"}
+        else:
+            assert launched == {"rglru_scan", "rmsnorm", "flash_attention",
+                                "decode_attention"}
+    np.testing.assert_array_equal(out["cuda"], out["torch"])
