@@ -77,8 +77,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     2048, through the RG-LRU scan, flash attention (head dim 256,
     window), decode attention (16 query heads per KV head) and RMSNorm;
     each model is freed before the next;
-12. print the ``{"kernels": [...]}`` line, the card line again, and as
-    the last line ``{"ok": true, "device": {...}}``.
+12. batched products through ``pipeline.compile(lambda a, b:
+    ops.matmul(a, b), target="cuda")`` in f32 and bf16 at paper Fig
+    6.3's four cases (256 x 16^3, 256 x 32^3, 64 x 64^3, 16 x 128^3), at
+    16384 x 32^3, at the per-head QK^T of one 2048-token qwen2-1.5b
+    sequence (12 x 2048 x 128 x 2048) and at qwen2-1.5b's up-projection
+    on a 3-D activation ((8, 256, 1536) x (1536, 8960), B broadcast):
+    each through one launch of the small or the tiled kernel with no
+    plain call, held to the plain version (f32 2e-4, bf16 2e-2) and
+    timed beside its bound, the plain version and ``torch.matmul``; then
+    one eager ``ops.matmul`` on card tensors and a 4-D batch;
+13. ResNet18 at full width (1000 classes) on 8 x 3 x 224 x 224 through
+    ``pipeline.compile`` for ``cuda`` and ``torch`` (cuDNN convolutions
+    with TF32 off on both): the gemm, nest and softmax kernels launched
+    and no plain call, the probabilities equal to rtol 1e-3 / atol 1e-6
+    with the same top-1 classes and rows summing to 1, each target within
+    1e-3 of an f64 evaluation, both calls timed, and the §4.3 DualView
+    ablation (host weights: h2d + d2h of one call, lazy against eager);
+14. the MALA LDOS surrogate (91 -> 400 x 3 -> 201) on 8748 points, cuda
+    against torch to 1e-4 of the output's scale, one gemm launch per
+    layer, both timed;
+15. print the ``{"kernels": [...]}`` line (thirteen kernels), the card
+    line again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's ``launches`` is the sum over the paths.
@@ -132,6 +152,21 @@ SERVE_SLOTS, SERVE_BLOCK = 8, 16
 # 2040-token prompts and 32 new tokens cross its 2048-slot ring's wrap
 RWKV_REQUESTS, RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 8, 4, 512, 32
 RG_REQUESTS, RG_BATCH, RG_PROMPT, RG_GEN = 4, 4, 2040, 32
+# phase 12: the batched products (A shape, B shape) — paper Fig 6.3's four
+# cases, 16384 small matrices, the per-head QKᵀ of one 2048-token qwen2-1.5b
+# sequence, and qwen2-1.5b's up-projection on a 3-D activation (B
+# broadcast: the same product as phase 4's 2-D gemm)
+BATCHED_CASES = (((256, 16, 16), (256, 16, 16)),
+                 ((256, 32, 32), (256, 32, 32)),
+                 ((64, 64, 64), (64, 64, 64)),
+                 ((16, 128, 128), (16, 128, 128)),
+                 ((16384, 32, 32), (16384, 32, 32)),
+                 ((12, 2048, 128), (12, 128, 2048)),
+                 ((8, 256, 1536), (1536, 8960)))
+# phases 13 and 14: ResNet18 at full width on Fig 6.2b's batch, and the
+# MALA surrogate at its published widths on the paper's 8748 points
+RESNET_BATCH, RESNET_RES = 8, 224
+MALA_POINTS = 8748
 
 
 def fail(msg: str) -> None:
@@ -201,6 +236,7 @@ def main() -> int:
     from repro_torch.core.tracer import TensorSpec
     from repro_torch.core.options import use_options
     from repro_torch.kernels import _build, generic, ref
+    from repro_torch.kernels import batched_gemm as bgm
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
@@ -213,7 +249,9 @@ def main() -> int:
     from repro_torch.kernels import spmv as spmv_mod
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models.mlp import gated_mlp_block
+    from repro_torch.models import resnet
     from repro_torch.models.model import build_model
+    from repro_torch.core.dualview import TRANSFERS, reset_transfer_stats
 
     # the plain versions are held to full f32 as well
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -226,7 +264,9 @@ def main() -> int:
                 "page_gather": pk.page_gather, "rmsnorm": rn.rmsnorm,
                 "decode_attention": da.decode_attention,
                 "flash_attention": fa.flash_attention,
-                "rwkv6_scan": rw.rwkv6_scan, "rglru_scan": rg.rglru_scan}
+                "rwkv6_scan": rw.rwkv6_scan, "rglru_scan": rg.rglru_scan,
+                "batched_gemm_small": bgm.batched_gemm_small,
+                "batched_gemm_tiled": bgm.batched_gemm_tiled}
     path_counts = {}     # path -> counts() read just after driving it
 
     def reset_counts() -> None:
@@ -337,6 +377,31 @@ def main() -> int:
                                        options=CompileOptions(target="cuda"))
                    for d, (fn, specs, _) in slice2_demos.items()}
 
+    def bmm(a, b):
+        return ops.matmul(a, b)
+
+    bmm_mods = {(sa, sb, dt): pipeline.compile(
+        bmm, TensorSpec(sa, dt), TensorSpec(sb, dt),
+        options=CompileOptions(target="cuda"))
+        for sa, sb in BATCHED_CASES for dt in ("float32", "bfloat16")}
+    rn_w = resnet.init_resnet18_weights(np.random.default_rng(0))
+    rn_spec = TensorSpec((RESNET_BATCH, 3, RESNET_RES, RESNET_RES),
+                         "float32")
+
+    def rn_fn(xv):
+        return resnet.resnet18_forward(rn_w, xv)
+
+    rn_mod = pipeline.compile(rn_fn, rn_spec,
+                              options=CompileOptions(target="cuda"))
+    mala_w = resnet.init_mala_weights(np.random.default_rng(1))
+    mala_spec = TensorSpec((MALA_POINTS, 91), "float32")
+
+    def mala_fn(xv):
+        return resnet.mala_forward(mala_w, xv)
+
+    mala_mod = pipeline.compile(mala_fn, mala_spec,
+                                options=CompileOptions(target="cuda"))
+
     ragged = (127, 65, 129)
     gemv_mk = (1000, 777)
     sources = (kops.kernel_sources(mod.graph)
@@ -349,7 +414,9 @@ def main() -> int:
                   for ks in kops.kernel_sources(m.graph)]
                + [spmv_mod.spmv_kernel(), spmm_mod.spmm_kernel(),
                   pk.page_gather_kernel()]
-               + kops.serving_kernel_sources())
+               + kops.serving_kernel_sources()
+               + [ks for m in (*bmm_mods.values(), rn_mod, mala_mod)
+                  for ks in kops.kernel_sources(m.graph)])
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
     build_s = time.perf_counter() - t0
@@ -1111,10 +1178,11 @@ def main() -> int:
         return x_, r_, i_, rand_t((d_,), dtype), \
             (rand_t((b, d_), torch.float32) if state else None)
 
-    def close(name, got, want, tol, what) -> None:
+    def close(name, got, want, tol, what) -> float:
         """Every element within tol + tol × |plain| (assert_allclose with
         rtol = atol = tol, the reference's kernel bar): a scan's values
-        grow with T where the decays sit near 1."""
+        grow with T where the decays sit near 1.  Returns the max abs
+        error."""
         torch.cuda.synchronize()
         if got.shape != want.shape:
             fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -1128,6 +1196,7 @@ def main() -> int:
         if not ok:
             fail(f"{what} disagrees with its plain version")
         worst[name] = max(worst[name], err)
+        return err
 
     def compare_pair(name, got, want, tol, what):
         close(name, got[0], want[0], tol, f"{what} y")
@@ -1408,6 +1477,224 @@ def main() -> int:
          "rmsnorm": 2 * rg_cfg.n_layers + 1})
 
     # ---------------------------------------------------------------- 12
+    print("phase 12: batched products through pipeline.compile(ops.matmul, "
+          "target='cuda'), f32 and bf16", flush=True)
+
+    batched_stats = []
+    for (sa, sb, dt), bmod in bmm_mods.items():
+        (op,) = [o for o in bmod.graph.ops if o.opname == "kk.batched_gemm"]
+        tiling = op.attrs["tiling"]
+        name = ("batched_gemm_small" if tiling["vectorize_batch"]
+                else "batched_gemm_tiled")
+        tdt = getattr(torch, dt)
+        a = randn(*sa).to(tdt)
+        b = randn(*sb, scale=sb[-2] ** -0.5).to(tdt)
+        label = f"{'x'.join(map(str, sa))} @ {'x'.join(map(str, sb))} {dt}"
+        reset_counts()
+        got = bmod(a, b)
+        torch.cuda.synchronize()
+        c = path_counts[f"batched {label}"] = counts()
+        launched = {n: l for n, (l, _) in c.items() if l}
+        if launched != {name: 1} or any(p for _, p in c.values()):
+            fail(f"batched {label} launched {launched}, want {{{name}: 1}} "
+                 "with no plain call")
+        tol = 2e-4 if dt == "float32" else 2e-2
+        err = close(name, got, ref.batched_gemm(a, b), tol,
+                    f"{name} {label} tiling {tiling}")
+        nb = int(np.prod(sa[:-2]))
+        m, k, n = sa[-2], sa[-1], sb[-1]
+        item = a.element_size()
+        ops_n = 2.0 * nb * m * n * k
+        bytes_n = item * (a.numel() + b.numel() + got.numel())
+        peak = PEAK_FP32_PER_S if dt == "float32" else PEAK_BF16_PER_S
+        b_ms, b_by = bound(bytes_n, ops_n, peak)
+        t_k = time_ms(lambda: bmod(a, b))
+        t_p = time_ms(lambda: ref.batched_gemm(a, b))
+        t_l = time_ms(lambda: torch.matmul(a, b))
+        print(f"  {label}: {t_k:.4f} ms (plain {t_p:.4f}, torch.matmul "
+              f"{t_l:.4f}, bound {b_ms:.4f} by {b_by}; "
+              f"{ops_n / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+        batched_stats.append({"a": sa, "b": sb, "dtype": dt, "kernel": name,
+                              "tiling": tiling, "ms": t_k, "plain_ms": t_p,
+                              "library_ms": t_l, "bound_ms": b_ms,
+                              "bound_by": b_by, "max_abs_err": err})
+        if dt == "float32":     # the kernels line sums the f32 cases
+            add_row(name, t_k, t_p, t_l, ops_n, bytes_n)
+        del a, b, got
+
+    # an eager call on card tensors (no tiling: the pass's choice for the
+    # shapes) and a 4-D batch through the compiler
+    a, b = randn(96, 24, 40), randn(96, 40, 24, scale=40 ** -0.5)
+    reset_counts()
+    with use_options(CompileOptions(target="cuda")):
+        got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    c = path_counts["batched eager 96x24x40"] = counts()
+    if c["batched_gemm_small"] != (1, 0) or \
+            sum(l for l, _ in c.values()) != 1:
+        fail(f"eager ops.matmul on card tensors launched {c}")
+    close("batched_gemm_small", got, ref.batched_gemm(a, b), 2e-4,
+          "batched_gemm_small eager ops.matmul 96x24x40 @ 96x40x24")
+    sa4, sb4 = (2, 3, 200, 96), (2, 3, 96, 130)
+    a, b = randn(*sa4), randn(*sb4, scale=96 ** -0.5)
+    mod4 = pipeline.compile(bmm, TensorSpec(sa4, "float32"),
+                            TensorSpec(sb4, "float32"),
+                            options=CompileOptions(target="cuda"))
+    reset_counts()
+    got = mod4(a, b)
+    torch.cuda.synchronize()
+    c = path_counts["batched 4-D 2x3x200x96"] = counts()
+    if c["batched_gemm_tiled"] != (1, 0) or \
+            sum(l for l, _ in c.values()) != 1:
+        fail(f"the 4-D batched product launched {c}")
+    close("batched_gemm_tiled", got, ref.batched_gemm(a, b), 2e-4,
+          "batched_gemm_tiled 4-D 2x3x200x96 @ 2x3x96x130")
+    del a, b, got
+
+    # ---------------------------------------------------------------- 13
+    print(f"phase 13: ResNet18 at full width (width 1.0, 1000 classes), "
+          f"batch {RESNET_BATCH}, {RESNET_RES}x{RESNET_RES}, f32, "
+          "pipeline.compile for cuda and torch; cuDNN convolutions with "
+          f"TF32 off (allow_tf32={torch.backends.cudnn.allow_tf32})",
+          flush=True)
+    rn_lib = pipeline.compile(rn_fn, rn_spec,
+                              options=CompileOptions(target="torch"))
+    xr = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        rn_spec.shape).astype(np.float32)).to(dev)
+    reset_counts()
+    probs = rn_mod(xr)
+    torch.cuda.synchronize()
+    c = path_counts["resnet18"] = counts()
+    launched = {n: l for n, (l, _) in c.items() if l}
+    ops_by_name = {}
+    for op in rn_mod.graph.ops:
+        ops_by_name[op.opname] = ops_by_name.get(op.opname, 0) + 1
+    print(f"  IR ops {ops_by_name}; launch_count {rn_mod.launch_count}; "
+          f"launches {launched}", flush=True)
+    if any(c[n][0] == 0 for n in ("matmul", "block_map_region",
+                                  "row_softmax")) or \
+            any(p for _, p in c.values()):
+        fail(f"ResNet18 launched {launched}: the gemm, nest and softmax "
+             "kernels must each launch, and no plain version may run")
+    probs_lib = rn_lib(xr)
+    # the same network in f64 (torch target) as the yardstick of both f32
+    # targets: the seeded full-width logits reach ~200, so a few ulp of
+    # f32 sum order in the fc product (K = 512) move the probabilities by
+    # ~1e-4 of themselves
+    def to64(t):
+        return ({k: to64(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.double())
+
+    rn_w64 = to64(rn_w)
+    probs64 = pipeline.compile(
+        lambda xv: resnet.resnet18_forward(rn_w64, xv),
+        TensorSpec(rn_spec.shape, "float64"),
+        options=CompileOptions(target="torch"))(xr.double())
+    torch.cuda.synchronize()
+
+    def rel_err(p, want) -> float:
+        keep = want.double() > 1e-6
+        return float(((p.double() - want.double()).abs()
+                      / want.double())[keep].max())
+    err = float((probs - probs_lib).abs().max())
+    rel_pair = rel_err(probs, probs_lib)
+    rel_cuda, rel_torch = rel_err(probs, probs64), rel_err(probs_lib,
+                                                           probs64)
+    row_err = float((probs.sum(-1) - 1).abs().max())
+    tight = torch.allclose(probs, probs_lib, rtol=1e-4, atol=1e-6)
+    ok = (tuple(probs.shape) == (RESNET_BATCH, 1000)
+          and bool(torch.isfinite(probs).all())
+          and torch.allclose(probs, probs_lib, rtol=1e-3, atol=1e-6)
+          and max(rel_cuda, rel_torch) <= 1e-3
+          and torch.equal(probs.argmax(-1), probs_lib.argmax(-1))
+          and row_err <= 1e-3)
+    print(f"  cuda vs torch target: max abs err {err:.3e}, max rel err "
+          f"{rel_pair:.3e} over p > 1e-6 (limit rtol 1e-3, atol 1e-6; "
+          f"within rtol 1e-4: {tight}); "
+          f"against f64: cuda {rel_cuda:.3e}, torch {rel_torch:.3e} "
+          f"(limit 1e-3); rows sum to 1 within {row_err:.1e} (limit "
+          f"1e-3); top-1 classes {probs.argmax(-1).tolist()}", flush=True)
+    if not ok:
+        fail("ResNet18 on the cuda target disagrees with the torch target")
+    del rn_w64, probs64
+    rn_ms = time_ms(lambda: rn_mod(xr), with_host=True)
+    rn_lib_ms = time_ms(lambda: rn_lib(xr), with_host=True)
+    rn_busy, rn_top = device_busy(lambda: rn_mod(xr))
+    print(f"  compiled call: cuda target {rn_ms:.4f} ms, torch target "
+          f"{rn_lib_ms:.4f} ms (with the host's share); cuda device busy "
+          f"{rn_busy:.4f} ms (profiler)", flush=True)
+    print("    largest kernels (ms per call): " + "; ".join(
+        f"{nm[:60]} {t:.4f}" for nm, t in rn_top), flush=True)
+    # §4.3 DualView ablation (benchmarks/resnet_bench.py): weights on the
+    # host, transfers of one call with lazy sync against the eager
+    # baseline's round trip around every kernel
+    rn_host_w = resnet.init_resnet18_weights(np.random.default_rng(0),
+                                             device="cpu")
+    ablation = {}
+    for lazy in (True, False):
+        m_ab = pipeline.compile(
+            lambda xv: resnet.resnet18_forward(rn_host_w, xv), rn_spec,
+            options=CompileOptions(target="cuda", lazy_dualview=lazy))
+        reset_transfer_stats()
+        m_ab(xr)
+        torch.cuda.synchronize()
+        h2d, d2h = TRANSFERS["h2d"], TRANSFERS["d2h"]
+        _, wall_t = host_and_wall(lambda: m_ab(xr), n=3)
+        ablation["lazy" if lazy else "eager"] = {
+            "h2d": h2d, "d2h": d2h, "wall_ms_later_calls": wall_t}
+        print(f"  lazy_dualview={lazy}: first call h2d {h2d} + d2h {d2h} = "
+              f"{h2d + d2h}; later calls {wall_t:.2f} ms (synchronized "
+              "wall)", flush=True)
+        del m_ab
+    resnet_stats = {"ms": rn_ms, "library_ms": rn_lib_ms,
+                    "device_busy_ms": rn_busy, "launches": launched,
+                    "max_abs_err": err, "max_rel_err": rel_pair,
+                    "rel_err_vs_f64": {"cuda": rel_cuda, "torch": rel_torch},
+                    "dualview": ablation}
+    del rn_mod, rn_lib, rn_host_w, probs, probs_lib, xr
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 14
+    print(f"phase 14: MALA LDOS surrogate (91 -> 400 x3 -> 201) on "
+          f"{MALA_POINTS} points, f32, pipeline.compile for cuda and torch",
+          flush=True)
+    mala_lib = pipeline.compile(mala_fn, mala_spec,
+                                options=CompileOptions(target="torch"))
+    xm = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        mala_spec.shape).astype(np.float32)).to(dev)
+    reset_counts()
+    ym = mala_mod(xm)
+    torch.cuda.synchronize()
+    c = path_counts["mala"] = counts()
+    launched = {n: l for n, (l, _) in c.items() if l}
+    n_layers = len([k for k in mala_w if k.startswith("w")])
+    print(f"  launch_count {mala_mod.launch_count}; launches {launched}",
+          flush=True)
+    if c["matmul"] != (n_layers, 0) or any(p for _, p in c.values()):
+        fail(f"MALA launched {launched}: want {n_layers} gemm kernels and "
+             "no plain version")
+    ym_lib = mala_lib(xm)
+    torch.cuda.synchronize()
+    err = float((ym - ym_lib).abs().max())
+    limit = 1e-4 * float(ym_lib.abs().max())
+    print(f"  cuda vs torch target: max abs err {err:.3e} (limit "
+          f"{limit:.3e}, 1e-4 of max|y|)", flush=True)
+    if not (err <= limit and bool(torch.isfinite(ym).all())
+            and tuple(ym.shape) == (MALA_POINTS, 201)):
+        fail("MALA on the cuda target disagrees with the torch target")
+    mala_ms = time_ms(lambda: mala_mod(xm), with_host=True)
+    mala_lib_ms = time_ms(lambda: mala_lib(xm), with_host=True)
+    mala_dev_ms = time_ms(lambda: mala_mod(xm))
+    mala_lib_dev_ms = time_ms(lambda: mala_lib(xm))
+    print(f"  compiled call: cuda target {mala_ms:.4f} ms, torch target "
+          f"{mala_lib_ms:.4f} ms; device time alone {mala_dev_ms:.4f} / "
+          f"{mala_lib_dev_ms:.4f} ms", flush=True)
+    mala_stats = {"ms": mala_ms, "library_ms": mala_lib_ms,
+                  "device_ms": mala_dev_ms,
+                  "library_device_ms": mala_lib_dev_ms,
+                  "launches": launched, "max_abs_err": err}
+
+    # ---------------------------------------------------------------- 15
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:57"),
@@ -1433,6 +1720,12 @@ def main() -> int:
                        "src/repro/kernels/rwkv6.py:78"),
         "rglru_scan": ("src/repro_torch/kernels/csrc/rglru.cu",
                        "src/repro/kernels/rglru.py:69"),
+        "batched_gemm_small": (
+            "src/repro_torch/kernels/csrc/batched_gemm.cu",
+            "src/repro/kernels/batched_gemm.py:73"),
+        "batched_gemm_tiled": (
+            "src/repro_torch/kernels/csrc/batched_gemm.cu",
+            "src/repro/kernels/batched_gemm.py:94"),
     }
     kernels = []
     for name in wrappers:
@@ -1461,6 +1754,8 @@ def main() -> int:
                       "recurrent_kernels": recurrent_kernel_stats,
                       "serve_rwkv6_3b": rwkv_stats,
                       "serve_recurrentgemma_9b": rg_stats,
+                      "batched": batched_stats, "resnet18": resnet_stats,
+                      "mala": mala_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

@@ -69,6 +69,25 @@ def gemv_loops(a, x, *, tiling=None):
     return torch.cat(rows, dim=0).to(a.dtype)
 
 
+def batched_gemm_loops(a, b, *, tiling=None):
+    t = tiling or {}
+    *batch, m, k = a.shape
+    n = b.shape[-1]
+    a2 = a.reshape((-1, m, k))
+    b2 = b.reshape((-1,) + tuple(b.shape[-2:])) if b.ndim > 2 else b
+    bb = max(int(t.get("batch_block", 1) or 1), 1)
+    while bb > 1 and bb * m * k * n > _TILE_BUDGET_ELEMS:
+        bb //= 2
+    blocks = []
+    for i0 in range(0, a2.shape[0], bb):        # grid loop over the batch
+        a_blk = a2[i0:i0 + bb]
+        b_blk = b2[i0:i0 + bb] if b2.ndim == 3 else b2[None]
+        blocks.append(torch.sum(a_blk[:, :, :, None] * b_blk[:, None, :, :],
+                                dim=2))
+    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=0)
+    return out.reshape(tuple(batch) + (m, n)).to(a.dtype)
+
+
 def _parallel_nest_loops(op, options):
     """Interpret a mapped ``kokkos.range_parallel``/``kokkos.team_parallel``
     nest as a Python serial loop over row blocks with the op's torch body
@@ -156,6 +175,7 @@ register_backend(Backend(
 
 register_kernel("kk.gemm", "loops", gemm_loops)
 register_kernel("kk.gemv", "loops", gemv_loops)
+register_kernel("kk.batched_gemm", "loops", batched_gemm_loops)
 register_kernel("kk.spmv", "loops", spmv_loops)
 register_kernel("kk.spmm", "loops", spmm_loops)
 # registered here, with the backend, rather than by kernels/paged_kv.py:

@@ -106,6 +106,9 @@ def _op_kwargs(op: Op) -> dict:
     """Forward data-independent attrs that implementations accept."""
     if op.opname in ("kk.spmv", "kk.spmm"):
         return {"max_nnz_row": op.attrs.get("max_nnz_row")}
+    if op.opname == "kk.conv2d":
+        return {"stride": tuple(op.attrs["stride"]),
+                "padding": op.attrs["padding"]}
     return {}
 
 

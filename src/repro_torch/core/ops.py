@@ -1,6 +1,7 @@
 """The tensor-dialect op surface — repro's linalg-on-tensors builders:
 elementwise, reductions, softmax, shape ops, constants, the matmul
-family, the CSR sparse products and the block-paged KV-cache ops.
+family, the CSR sparse products, the block-paged KV-cache ops and the
+convolution, pool and batch-norm ops of ResNet18.
 
 Every function here is dual-mode:
 
@@ -463,3 +464,46 @@ def page_swap_in(pool, swap, src_ids, dst_ids, *, block_size: int):
     pool."""
     return _paged_copy_like("paged.swap_in", page_swap_in, pool, swap,
                             src_ids, dst_ids, block_size, {})
+
+
+# ---------------------------------------------------------------------------
+# convolutional-network ops (ResNet18): kk.conv2d is a library call in the
+# reference too; the pools and the folded batch norm stay linalg.* ops
+# that execute their plain semantics
+# ---------------------------------------------------------------------------
+
+def conv2d(x, w, *, stride=(1, 1), padding="SAME"):
+    """NCHW × OIHW convolution, XLA's padding rules (``refs.conv2d``)."""
+    def ref(xx, ww):
+        return refs.conv2d(xx, ww, stride, padding)
+    if tracing():
+        return emit("kk.conv2d", [x, w], ref,
+                    attrs={"stride": stride, "padding": padding})
+    return ref(x, w)
+
+
+def max_pool2d(x, *, window=(3, 3), stride=(2, 2), padding="SAME"):
+    def ref(xx):
+        return refs.max_pool2d(xx, window, stride, padding)
+    if tracing():
+        return emit("linalg.max_pool2d", [x], ref,
+                    attrs={"window": window, "stride": stride,
+                           "padding": padding})
+    return ref(x)
+
+
+def avg_pool_global(x):
+    """Global average pool over H, W of NCHW."""
+    if tracing():
+        return emit("linalg.avg_pool_global", [x], refs.avg_pool_global)
+    return refs.avg_pool_global(x)
+
+
+def batch_norm_inference(x, scale, bias, mean_, var, eps=1e-5):
+    """Folded inference-mode batch norm over channel dim 1 of NCHW."""
+    def ref(xx, s, b, m, v):
+        return refs.batch_norm(xx, s, b, m, v, eps)
+    if tracing():
+        return emit("linalg.batch_norm", [x, scale, bias, mean_, var], ref,
+                    attrs={"eps": eps})
+    return ref(x, scale, bias, mean_, var)

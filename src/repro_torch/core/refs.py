@@ -16,6 +16,9 @@ in torch.  Where the two frameworks differ, the reference wins:
   out of range (NaN for floats, the type's minimum for integers), as
   ``jnp.take`` does;
 * softmax subtracts the row maximum before exponentiating;
+* ``"SAME"`` padding of convolutions and pools puts the odd row and
+  column at the end, as XLA does (torch's symmetric ``padding=`` gives
+  the same output size and other values);
 * matmul-like ops promote mixed operand types first (torch refuses them);
 * integer sums keep the operand's integer type.
 """
@@ -122,6 +125,55 @@ def take(a, i, axis=0):
                                              device=a.device))
 
 
+def same_pads(size: int, window: int, stride: int) -> tuple:
+    """(lo, hi) padding of XLA's ``"SAME"``: the output has
+    ceil(size / stride) positions and the odd row or column goes at the
+    end (``F.conv2d(padding=k // 2)`` would put it at both ends)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _spatial_pads(x, window, stride, padding) -> tuple:
+    """``F.pad``'s flat (w_lo, w_hi, h_lo, h_hi) for NCHW ``x``: from
+    ``"SAME"``, ``"VALID"`` or explicit ((h_lo, h_hi), (w_lo, w_hi))."""
+    if padding == "VALID":
+        return (0, 0, 0, 0)
+    if padding == "SAME":
+        (h_lo, h_hi), (w_lo, w_hi) = (
+            same_pads(x.shape[2 + i], window[i], stride[i]) for i in (0, 1))
+    else:
+        (h_lo, h_hi), (w_lo, w_hi) = (tuple(p) for p in padding)
+    return (w_lo, w_hi, h_lo, h_hi)
+
+
+def conv2d(x, w, stride=(1, 1), padding="SAME"):
+    """``jax.lax.conv_general_dilated`` over NCHW / OIHW: pad as XLA
+    does, then convolve unpadded."""
+    stride = tuple(stride)
+    pads = _spatial_pads(x, tuple(w.shape[2:]), stride, padding)
+    return F.conv2d(F.pad(x, pads), w, stride=stride)
+
+
+def max_pool2d(x, window=(3, 3), stride=(2, 2), padding="SAME"):
+    """``jax.lax.reduce_window(max)`` over H, W of NCHW, with -inf in the
+    padding (the reduction's identity)."""
+    window, stride = tuple(window), tuple(stride)
+    pads = _spatial_pads(x, window, stride, padding)
+    return F.max_pool2d(F.pad(x, pads, value=float("-inf")), window, stride)
+
+
+def avg_pool_global(x):
+    return torch.mean(x, dim=(2, 3))
+
+
+def batch_norm(x, scale, bias, mean_, var, eps=1e-5):
+    """Folded inference-mode batch norm over channel dim 1 of NCHW."""
+    inv = scale * torch.rsqrt(var + eps)
+    return x * inv[None, :, None, None] + (bias - mean_ * inv)[
+        None, :, None, None]
+
+
 _SIMPLE = {
     "linalg.add": torch.add,
     "linalg.sub": torch.sub,
@@ -141,6 +193,7 @@ _SIMPLE = {
     "linalg.batch_matmul": matmul,
     "linalg.gemv": matmul,
     "linalg.dot": dot,
+    "linalg.avg_pool_global": avg_pool_global,
     # kk.* library semantics
     "kk.gemm": matmul,
     "kk.gemv": matmul,
@@ -164,6 +217,13 @@ def op_ref(opname: str, attrs: dict) -> Callable:
     if opname == "linalg.mean":
         return lambda a: mean(a, attrs.get("axis"),
                               attrs.get("keepdims", False))
+    if opname == "kk.conv2d":
+        return lambda x, w: conv2d(x, w, attrs["stride"], attrs["padding"])
+    if opname == "linalg.batch_norm":
+        return partial(batch_norm, eps=attrs.get("eps", 1e-5))
+    if opname == "linalg.max_pool2d":
+        return lambda x: max_pool2d(x, attrs["window"], attrs["stride"],
+                                    attrs["padding"])
     if opname == "linalg.softmax":
         return lambda a: softmax(a, attrs.get("axis", -1))
     if opname == "tensor.reshape":

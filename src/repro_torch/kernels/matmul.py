@@ -2,8 +2,9 @@
 (the tiled MXU matmul, the "pure Kokkos lowering" of paper §6.4).
 
 :func:`matmul` launches ``csrc/matmul.cu``: a shared-memory tiled FFMA
-kernel with an 8×8 register micro-tile per thread, f32 accumulation,
-ragged edges masked in the kernel.  The block shape (bm, bn, bk) is the
+kernel (the tile loop of ``csrc/gemm_tile.cuh``, which the tiled batched
+product shares) with an 8×8 register micro-tile per thread, f32
+accumulation, ragged edges masked in the kernel.  The block shape (bm, bn, bk) is the
 ``tiling`` the map_parallelism pass chose over the H100 hierarchy; the
 library is compiled once per tiling (``-DLAPIS_BM/BN/BK``), and a tiling
 the kernel cannot run raises.
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-MICRO_TILE = 8                 # TM = TN in csrc/matmul.cu
+MICRO_TILE = 8                 # TM = TN in csrc/gemm_tile.cuh
 MAX_THREADS = 1024
 MAX_SMEM_BYTES = 232_448       # sm_90 opt-in shared memory per block
 _FNS = {(torch.float32, torch.float32): "lapis_matmul_f32",
@@ -35,7 +36,7 @@ def default_tiling(m: int, n: int, k: int, itemsize: int) -> dict:
 
 
 def check_tiling(tiling: dict) -> tuple:
-    """(bm, bn, bk) if ``csrc/matmul.cu`` can run this tiling, else
+    """(bm, bn, bk) if ``csrc/gemm_tile.cuh`` can run this tiling, else
     ValueError: whole micro-tiles, at most 1024 threads, and staged tiles
     within the 227 KiB of shared memory a block may use."""
     bm, bn, bk = (int(tiling[x]) for x in ("bm", "bn", "bk"))

@@ -9,6 +9,10 @@ Each ``kk.*`` op ported so far gets two implementations (the
               ``torch.autograd.Function`` whose forward is the kernel and
               whose backward is derived from the plain version.
 
+``kk.conv2d`` is the exception: the reference registers only its library
+path, so it has a ``torch`` entry alone and the ``cuda`` chain serves it
+from there (cuDNN).
+
 Model code calls the model-facing wrappers (``attention``,
 ``decode_attention``, ``rmsnorm``, ``rwkv6``, ``rglru``), which ask the
 ambient ``CompileOptions``' backend whether it wants kernels, as the
@@ -35,8 +39,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import refs
 from repro_torch.core.options import CompileOptions, current_options
 from repro_torch.core.registry import register
+from repro_torch.kernels import batched_gemm as _bg
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
@@ -114,6 +120,32 @@ def _gemv_kernel(a, x):
 @register("kk.gemv", "cuda")
 def gemv_cuda(a, x, *, tiling=None):
     return _Kernelized.apply(_gemv_kernel, ref.gemv, a, x)
+
+
+# ---------------------------------------------------------------------------
+# kk.batched_gemm
+# ---------------------------------------------------------------------------
+
+@register("kk.batched_gemm", "torch")
+def batched_gemm_torch(a, b, *, tiling=None):
+    return ref.batched_gemm(a, b)
+
+
+@register("kk.batched_gemm", "cuda")
+def batched_gemm_cuda(a, b, *, tiling=None):
+    return _Kernelized.apply(
+        functools.partial(_bg.batched_gemm, tiling=tiling),
+        ref.batched_gemm, a, b)
+
+
+# ---------------------------------------------------------------------------
+# kk.conv2d — the library's (cuDNN on the card); the reference registers
+# no Pallas kernel for it, so the cuda chain falls back to this one
+# ---------------------------------------------------------------------------
+
+@register("kk.conv2d", "torch")
+def conv2d_torch(x, w, *, stride=(1, 1), padding="SAME", tiling=None):
+    return refs.conv2d(x, w, stride, padding)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +283,10 @@ def kernel_sources(graph) -> list:
         if op.opname == "kk.gemm":
             out.append(_mm.matmul_kernel(
                 *_mm.check_tiling(op.attrs["tiling"])))
+        elif op.opname == "kk.batched_gemm":
+            (m, _), (_, n) = (o.type.shape[-2:] for o in op.operands)
+            small, bm, bn, bk, _ = _bg.check_tiling(op.attrs["tiling"], m, n)
+            out.append(_bg.batched_gemm_kernel(small, bm, bn, bk))
         elif op.opname == "kk.gemv":
             a = op.operands[0].type
             tiling = _mm.default_tiling(a.shape[0], 1, a.shape[1],

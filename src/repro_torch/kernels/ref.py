@@ -1,6 +1,6 @@
 """Plain torch versions of the kernels in this package (the reference's
-``kernels/ref.py``: dense matmul, sparse, attention, RMSNorm and the
-RWKV6 and RG-LRU scans):
+``kernels/ref.py``: dense and batched matmul, sparse, attention, RMSNorm
+and the RWKV6 and RG-LRU scans):
 the CPU path of each wrapper, the oracle the kernels are held against on
 the card, and the library (``torch``) registry implementations.  Mixed
 operand dtypes promote first, as ``jnp.matmul`` does (``torch.matmul``
@@ -21,6 +21,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return matmul(a, x)
+
+
+def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[..., M, N] = A[..., M, K] · B[..., K, N] over A's leading batch
+    dims, B broadcast where it is 2-D or has fewer or size-1 batch dims;
+    f32 accumulation, output in A's dtype, as the reference's Pallas
+    kernel computes it."""
+    acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                              torch.float32)
+    return torch.matmul(a.to(acc), b.to(acc)).to(a.dtype)
 
 
 # ---------------------------------------------------------------------------

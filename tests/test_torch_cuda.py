@@ -14,6 +14,7 @@ from repro_torch.core import ops, pipeline
 from repro_torch.core.options import CompileOptions
 from repro_torch.core.refs import region_ref, softmax
 from repro_torch.core.tracer import TensorSpec
+from repro_torch.kernels import batched_gemm as bg
 from repro_torch.kernels import generic, ops as kops
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import paged_kv as pk
@@ -577,3 +578,139 @@ def test_recurrent_families_serve_through_the_kernels(card, arch, layers):
             assert launched == {"rglru_scan", "rmsnorm", "flash_attention",
                                 "decode_attention"}
     np.testing.assert_array_equal(out["cuda"], out["torch"])
+
+
+# ---------------------------------------------------------------------------
+# batched GEMM (both kernels) and the ResNet18 / MALA paths
+# ---------------------------------------------------------------------------
+
+def _bgemm_counts():
+    return {w.__name__: (w.launches, w.plain_calls)
+            for w in (bg.batched_gemm_small, bg.batched_gemm_tiled)}
+
+
+def _bgemm_check(a, b, tiling, kernel, out_dtype=None):
+    before = _bgemm_counts()
+    got = bg.batched_gemm(a, b, tiling=tiling, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    after = _bgemm_counts()
+    launched = {n for n in after if after[n][0] != before[n][0]}
+    assert launched == {kernel}
+    assert all(after[n][1] == before[n][1] for n in after)
+    want = torch.matmul(a.float(), b.float())
+    tol = 2e-4 if a.dtype == torch.float32 else 2e-2
+    assert got.dtype == (out_dtype or a.dtype)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,m,k,n", [(256, 32, 32, 32), (256, 16, 16, 16),
+                                     (37, 12, 70, 20), (5, 1, 33, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_small_kernel_matches_plain(card, rng, b, m, k, n,
+                                                 dtype):
+    """The pass's tilings (batch_block 32, more than one group fits);
+    a batch tail of 37 = 32 + 5 and a K of 70 over chunks of 32."""
+    a = _randn(rng, (b, m, k), dtype=dtype)
+    bb = _randn(rng, (b, k, n), k ** -0.5, dtype=dtype)
+    tiling = bg.default_tiling(a.shape, bb.shape, a.element_size())
+    assert tiling["vectorize_batch"] and tiling["batch_block"] == min(b, 32)
+    _bgemm_check(a, bb, tiling, "batched_gemm_small")
+
+
+@pytest.mark.parametrize("b,m,k,n,tiling", [
+    (3, 130, 70, 150, {"bm": 32, "bn": 64, "bk": 32}),
+    (7, 64, 64, 64, None), (2, 257, 129, 65, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_tiled_kernel_matches_plain(card, rng, b, m, k, n,
+                                                 tiling, dtype):
+    a = _randn(rng, (b, m, k), dtype=dtype)
+    bb = _randn(rng, (b, k, n), k ** -0.5, dtype=dtype)
+    tiling = dict(tiling or bg.default_tiling(a.shape, bb.shape,
+                                              a.element_size()),
+                  vectorize_batch=False)
+    _bgemm_check(a, bb, tiling, "batched_gemm_tiled")
+
+
+@pytest.mark.parametrize("sa,sb", [((8, 256, 64), (64, 200)),
+                                   ((300, 16, 16), (1, 16, 16)),
+                                   ((2, 3, 20, 30), (30, 40)),
+                                   ((40, 24), (6, 24, 36))])
+def test_batched_gemm_reads_a_broadcast_operand_in_place(card, rng, sa, sb):
+    """Stride-0 operands: B as 2-D or a size-1 batch, and A broadcast
+    over B's batch; no copy of the broadcast operand is made."""
+    a, b = _randn(rng, sa), _randn(rng, sb, sb[-2] ** -0.5)
+    before = torch.cuda.memory_allocated()
+    got = bg.batched_gemm(a, b)
+    torch.cuda.synchronize()
+    out_bytes = got.numel() * got.element_size()
+    assert torch.cuda.memory_allocated() - before <= out_bytes + 512
+    torch.testing.assert_close(got, torch.matmul(a, b), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_batched_gemm_bf16_to_f32_and_transposed_operands(card, rng):
+    a = _randn(rng, (6, 16, 40), dtype=torch.bfloat16)
+    b = _randn(rng, (6, 48, 40), 40 ** -0.5,
+               dtype=torch.bfloat16).transpose(1, 2)    # 16·48 <= 1024
+    for t in (None, {"bm": 16, "bn": 32, "bk": 32, "vectorize_batch": False}):
+        kernel = "batched_gemm_small" if t is None else "batched_gemm_tiled"
+        tiling = t or bg.default_tiling(a.shape, b.shape, 2)
+        _bgemm_check(a, b, tiling, kernel, out_dtype=torch.float32)
+
+
+def test_batched_gemm_refuses_what_it_does_not_take(card, rng):
+    a = _randn(rng, (4, 8, 8))
+    with pytest.raises(TypeError):
+        bg.batched_gemm(a, a.bfloat16())
+    with pytest.raises(ValueError):
+        bg.batched_gemm(a, _randn(rng, (4, 9, 8)))
+    with pytest.raises(ValueError):      # tiled tiling named for small
+        bg.batched_gemm_small(a, a, tiling={"bm": 8, "bn": 8, "bk": 8,
+                                            "vectorize_batch": False})
+
+
+@pytest.mark.parametrize("sa,sb", [((256, 32, 32), (256, 32, 32)),
+                                   ((16, 128, 128), (16, 128, 128)),
+                                   ((2, 3, 20, 30), (2, 3, 30, 40))])
+def test_compiled_batched_matmul_runs_through_the_kernels_only(card, rng,
+                                                               sa, sb):
+    fn = lambda x, y: ops.matmul(x, y)   # noqa: E731
+    a, b = _randn(rng, sa), _randn(rng, sb)
+    mod = pipeline.compile(fn, TensorSpec(sa, "float32"),
+                           TensorSpec(sb, "float32"),
+                           options=CompileOptions(target="cuda"))
+    before = _bgemm_counts()
+    got = mod(a, b)
+    torch.cuda.synchronize()
+    after = _bgemm_counts()
+    assert sum(after[n][0] - before[n][0] for n in after) == 1
+    assert all(after[n][1] == before[n][1] for n in after)
+    lib = pipeline.compile(fn, TensorSpec(sa, "float32"),
+                           TensorSpec(sb, "float32"),
+                           options=CompileOptions(target="torch"))
+    torch.testing.assert_close(got, lib(a, b), rtol=2e-4, atol=2e-4)
+
+
+def test_reduced_resnet18_and_mala_cuda_match_torch(card):
+    """Both models at reduced size through pipeline.compile on the card:
+    the cuda target (the gemm, nest and softmax kernels; conv through
+    cuDNN at f32) against the torch target."""
+    from repro_torch.models import resnet
+    torch.backends.cudnn.allow_tf32 = False
+    w = resnet.init_resnet18_weights(np.random.default_rng(0),
+                                     width_mult=0.25)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 3, 64, 64)).astype(np.float32)).cuda()
+    mw = resnet.init_mala_weights(np.random.default_rng(2))
+    p = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (300, 91)).astype(np.float32)).cuda()
+    for fn, arg, tol in ((lambda v: resnet.resnet18_forward(w, v), x,
+                          dict(rtol=1e-4, atol=1e-6)),
+                         (lambda v: resnet.mala_forward(mw, v), p,
+                          dict(rtol=1e-4, atol=1e-4))):
+        spec = TensorSpec(tuple(arg.shape), "float32")
+        got = pipeline.compile(fn, spec,
+                               options=CompileOptions(target="cuda"))(arg)
+        want = pipeline.compile(fn, spec,
+                                options=CompileOptions(target="torch"))(arg)
+        torch.testing.assert_close(got, want, **tol)
