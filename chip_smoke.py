@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. print the card (``nvidia-smi``) and build every hand kernel of the
    main paths from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
-   all builds started together;
+   all builds started together; fail unless the bf16 flash library's
+   SASS (``cuobjdump -sass``) holds HGMMA (wgmma) and UTMALDG (TMA);
 2. hold each kernel against its plain torch version on the card at the
    shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
    block at its published widths; SpMV and SpMM on the sparse test
@@ -41,9 +42,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    lengths that include 0, 1 and 2048, a window case and a stride-0
    batch (the chunked prefill's broadcast row); flash attention at
    12 / 2 heads x 128 over 2048 causal positions and the sweep cases of
-   ``tests/test_kernels.py`` (window, softcap, Sq != Skv, ragged tails);
-   each timed in bf16 beside its bound, its plain version and one
-   library call (``F.rms_norm``, ``F.scaled_dot_product_attention``);
+   ``tests/test_kernels.py`` (window, softcap, Sq != Skv, ragged tails),
+   bf16 on the wgmma kernel and f32 on the FFMA one; each timed in bf16
+   beside its bound, its plain version and one library call
+   (``F.rms_norm``, ``F.scaled_dot_product_attention``), and the FFMA
+   flash kernel in f32 at the same shape beside SDPA in f32;
 8. serving qwen2-1.5b at its published widths (28 layers, seeded bf16
    weights): ``repro_torch.launch.serve.main`` with ``--paged --target
    cuda`` over 16 ragged requests (prompts up to 512, up to 32 new
@@ -75,8 +78,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 11. the same for recurrentgemma-9b (38 layers, 9.4 B parameters) over 4
     requests of 2040 + 32 tokens, so decode crosses the ring's wrap at
     2048, through the RG-LRU scan, flash attention (head dim 256,
-    window), decode attention (16 query heads per KV head) and RMSNorm;
-    each model is freed before the next;
+    window), decode attention (16 query heads per KV head) and RMSNorm,
+    with the wave prefill's device time and largest kernels from the
+    profiler; each model is freed before the next;
 12. batched products through ``pipeline.compile(lambda a, b:
     ops.matmul(a, b), target="cuda")`` in f32 and bf16 at paper Fig
     6.3's four cases (256 x 16^3, 256 x 32^3, 64 x 64^3, 16 x 128^3), at
@@ -97,7 +101,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 14. the MALA LDOS surrogate (91 -> 400 x 3 -> 201) on 8748 points, cuda
     against torch to 1e-4 of the output's scale, one gemm launch per
     layer, both timed;
-15. print the ``{"kernels": [...]}`` line (thirteen kernels), the card
+15. print the ``{"kernels": [...]}`` line (fourteen kernels: flash
+    attention's bf16 and f32 kernels are two rows), the card
     line again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and
@@ -167,6 +172,38 @@ BATCHED_CASES = (((256, 16, 16), (256, 16, 16)),
 # MALA surrogate at its published widths on the paper's 8748 points
 RESNET_BATCH, RESNET_RES = 8, 224
 MALA_POINTS = 8748
+
+
+class KernelCount:
+    """One kernel's launch count on a wrapper that routes to two kernels
+    (flash attention: bf16 to the wgmma kernel, f32 to the FFMA one);
+    the plain calls are the wrapper's."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
+
+    @property
+    def plain_calls(self) -> int:
+        return self.fn.plain_calls
+
+    @plain_calls.setter
+    def plain_calls(self, n: int) -> None:
+        self.fn.plain_calls = n
+
+
+def at_f32(need: tuple) -> tuple:
+    """The kernels a path must launch when it computes in f32: flash
+    attention then runs the FFMA kernel, not the bf16 wgmma one."""
+    return tuple("flash_attention_f32" if n == "flash_attention" else n
+                 for n in need)
 
 
 def fail(msg: str) -> None:
@@ -263,7 +300,10 @@ def main() -> int:
                 "spmv": spmv_mod.spmv, "spmm": spmm_mod.spmm_sparse,
                 "page_gather": pk.page_gather, "rmsnorm": rn.rmsnorm,
                 "decode_attention": da.decode_attention,
-                "flash_attention": fa.flash_attention,
+                "flash_attention": KernelCount(fa.flash_attention,
+                                               "launches_sm90"),
+                "flash_attention_f32": KernelCount(fa.flash_attention,
+                                                   "launches_ffma"),
                 "rwkv6_scan": rw.rwkv6_scan, "rglru_scan": rg.rglru_scan,
                 "batched_gemm_small": bgm.batched_gemm_small,
                 "batched_gemm_tiled": bgm.batched_gemm_tiled}
@@ -422,6 +462,12 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"built {len(set(libs))} kernel libraries with nvcc for sm_90a "
           f"in {build_s:.1f} s", flush=True)
+    sass = _build.sass(fa.flash_attention_sm90_kernel())
+    n_hgmma, n_tma = sass.count("HGMMA"), sass.count("UTMALDG")
+    print(f"flash_attention_sm90.cu SASS: {n_hgmma} HGMMA (wgmma), {n_tma} "
+          "UTMALDG (TMA tile loads)", flush=True)
+    if not n_hgmma or not n_tma:
+        fail("the bf16 flash library issues no wgmma or no TMA load")
 
     # ---------------------------------------------------------------- 2
     worst = {n: 0.0 for n in wrappers}
@@ -914,7 +960,9 @@ def main() -> int:
         qf = rand_t((1, heads, s_dec, hd), dtype)
         kf = rand_t((1, kv_heads, s_dec, hd), dtype)
         vf = rand_t((1, kv_heads, s_dec, hd), dtype)
-        compare("flash_attention", fa.flash_attention(qf, kf, vf),
+        fa_row = "flash_attention" if dtype == torch.bfloat16 \
+            else "flash_attention_f32"
+        compare(fa_row, fa.flash_attention(qf, kf, vf),
                 ref.attention(qf, kf, vf), tol_att,
                 f"flash_attention 1x{heads}/{kv_heads}x{s_dec}x{hd} causal "
                 f"{tag}")
@@ -923,7 +971,7 @@ def main() -> int:
             ks = rand_t((2, hkv_, skv_, d_), dtype)
             vs = rand_t((2, hkv_, skv_, d_), dtype)
             kw = {"causal": causal, "window": window, "logit_softcap": cap}
-            compare("flash_attention", fa.flash_attention(qs, ks, vs, **kw),
+            compare(fa_row, fa.flash_attention(qs, ks, vs, **kw),
                     ref.attention(qs, ks, vs, **kw), tol_att,
                     f"flash_attention {hq_}/{hkv_} heads {sq_}x{skv_}x{d_} "
                     f"{kw} {tag}")
@@ -971,16 +1019,33 @@ def main() -> int:
     ops_n = 4.0 * pairs * heads * hd
     bytes_n = 2.0 * (2 * qf.numel() + kf.numel() + vf.numel())
     b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
-    ffma_ms, _ = bound(bytes_n, ops_n, PEAK_FP32_PER_S)
-    print(f"  flash_attention 1x{heads}/{kv_heads}x{s_dec}x{hd} causal bf16: "
-          f"{t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, bound {b_ms:.4f} "
-          f"by {b_by} at the bf16 tensor-core peak, {ffma_ms:.4f} at the "
-          f"FP32 FFMA peak the kernel runs on; "
-          f"{ops_n / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+    print(f"  flash_attention (wgmma + TMA) 1x{heads}/{kv_heads}x{s_dec}x{hd} "
+          f"causal bf16: {t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, "
+          f"bound {b_ms:.4f} by {b_by} at the bf16 tensor-core peak; "
+          f"{ops_n / t_k / 1e9:.1f} TFLOP/s, SDPA "
+          f"{ops_n / t_l / 1e9:.1f})", flush=True)
     add_row("flash_attention", t_k, t_p, t_l, ops_n, bytes_n)
+    flash_stats = {"qwen2_bf16": {"ms": t_k, "plain_ms": t_p,
+                                  "library_ms": t_l, "bound_ms": b_ms,
+                                  "tflops": ops_n / t_k / 1e9}}
+    # the FFMA kernel keeps the f32 path: timed at the same shape in f32,
+    # beside SDPA in f32, its bound at the FP32 rate outside the tensor cores
+    q32, k32, v32 = qf.float(), kf.float(), vf.float()
+    t_k = time_ms(lambda: fa.flash_attention(q32, k32, v32))
+    t_p = time_ms(lambda: ref.attention(q32, k32, v32))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, enable_gqa=True))
+    b_ms, b_by = bound(2 * bytes_n, ops_n, PEAK_FP32_PER_S)
+    print(f"  flash_attention_f32 (FFMA) 1x{heads}/{kv_heads}x{s_dec}x{hd} "
+          f"causal f32: {t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, bound "
+          f"{b_ms:.4f} by {b_by} at the FP32 peak; "
+          f"{ops_n / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+    add_row("flash_attention_f32", t_k, t_p, t_l, ops_n, 2 * bytes_n)
+    flash_stats["qwen2_f32"] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                                "bound_ms": b_ms}
     for name in ("rmsnorm", "decode_attention", "flash_attention"):
         rows[name]["peak"] = PEAK_BF16_PER_S
-    del q, kc, vc, qf, kf, vf, mask
+    del q, kc, vc, qf, kf, vf, mask, q32, k32, v32
 
     # ---------------------------------------------------------------- 8
     print("phase 8: serving qwen2-1.5b at full width: launch.serve.main("
@@ -1136,7 +1201,7 @@ def main() -> int:
         c = counts()
         if target == "cuda":
             path_counts["serve f32"] = c
-            if any(c[n][0] == 0 for n in need) or \
+            if any(c[n][0] == 0 for n in at_f32(need)) or \
                     any(p for _, p in c.values()):
                 fail(f"f32 serving launched {c} with plain calls")
         tokens32[target] = {r.rid: list(r.tokens) for r in out32["requests"]}
@@ -1239,7 +1304,8 @@ def main() -> int:
         qf = rand_t((rg_b, rg_hq, rg_t, rg_hd), dtype)
         kf = rand_t((rg_b, rg_hkv, rg_t, rg_hd), dtype)
         vf = rand_t((rg_b, rg_hkv, rg_t, rg_hd), dtype)
-        compare("flash_attention",
+        compare("flash_attention" if dtype == torch.bfloat16
+                else "flash_attention_f32",
                 fa.flash_attention(qf, kf, vf, window=ring),
                 ref.attention(qf, kf, vf, window=ring), tol_y,
                 f"flash_attention {rg_b}x{rg_hq}/{rg_hkv}x{rg_t}x{rg_hd} "
@@ -1299,13 +1365,16 @@ def main() -> int:
     ops_n = 4.0 * pairs * rg_b * rg_hq * rg_hd
     bytes_n = 2.0 * (2 * qf.numel() + kf.numel() + vf.numel())
     b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
-    print(f"  flash_attention {rg_b}x{rg_hq}/{rg_hkv}x{rg_t}x{rg_hd} window "
-          f"{ring} bf16: {t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, "
-          f"bound {b_ms:.4f} by {b_by}; {ops_n / t_k / 1e9:.1f} TFLOP/s)",
-          flush=True)
+    print(f"  flash_attention (wgmma + TMA) {rg_b}x{rg_hq}/{rg_hkv}x{rg_t}x"
+          f"{rg_hd} window {ring} bf16: {t_k:.4f} ms (plain {t_p:.4f}, SDPA "
+          f"{t_l:.4f}, bound {b_ms:.4f} by {b_by} at the bf16 tensor-core "
+          f"peak; {ops_n / t_k / 1e9:.1f} TFLOP/s, SDPA "
+          f"{ops_n / t_l / 1e9:.1f})", flush=True)
     add_row("flash_attention", t_k, t_p, t_l, ops_n, bytes_n)
-    recurrent_kernel_stats["flash_attention_d256"] = {
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms}
+    recurrent_kernel_stats["flash_attention_d256"] = flash_stats[
+        "recurrentgemma_bf16"] = {"ms": t_k, "plain_ms": t_p,
+                                  "library_ms": t_l, "bound_ms": b_ms,
+                                  "tflops": ops_n / t_k / 1e9}
     q = rand_t((rg_b, rg_hq, rg_hd), bf)
     kc = rand_t((rg_b, rg_hkv, ring, rg_hd), bf)
     vc = rand_t((rg_b, rg_hkv, ring, rg_hd), bf)
@@ -1386,10 +1455,16 @@ def main() -> int:
                 logits, cache = prefill()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
+            busy, top = device_busy(prefill, n=2)
         stats["prefill_ms"] = statistics.median(times)
-        print(f"  prefill of {batch} x {plen} tokens (bf16): "
+        stats["prefill_device_busy_ms"] = busy
+        stats["prefill_top_kernels_ms"] = top
+        print(f"  wave prefill of {batch} x {plen} tokens (bf16): "
               f"{stats['prefill_ms']:.2f} ms (median of 3, host clock, "
-              "synchronized)", flush=True)
+              f"synchronized); device busy {busy:.2f} ms (profiler)",
+              flush=True)
+        print("    largest prefill kernels (ms per prefill): " + "; ".join(
+            f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
         tok = torch.argmax(logits[:, :cfg_a.vocab_size], -1).to(torch.int32)
 
         def step(target):
@@ -1445,7 +1520,7 @@ def main() -> int:
             c = counts()
             if target == "cuda":
                 path_counts[f"{arch} f32"] = c
-                if any(c[n][0] == 0 for n in need) or \
+                if any(c[n][0] == 0 for n in at_f32(need)) or \
                         any(p for _, p in c.values()):
                     fail(f"{arch} f32 generate launched {c} with plain "
                          "calls")
@@ -1714,6 +1789,9 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:100"),
         "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "src/repro/kernels/flash_attention.py:120"),
+        "flash_attention_f32": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:120"),
         "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6.cu",
@@ -1752,6 +1830,7 @@ def main() -> int:
                       "decode_step": step_stats,
                       "decode_step_launches": per_step,
                       "recurrent_kernels": recurrent_kernel_stats,
+                      "flash_attention": flash_stats,
                       "serve_rwkv6_3b": rwkv_stats,
                       "serve_recurrentgemma_9b": rg_stats,
                       "batched": batched_stats, "resnet18": resnet_stats,

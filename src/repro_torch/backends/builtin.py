@@ -2,6 +2,14 @@
 CUDA kernels) and ``auto`` (kernels iff the compile targets the card).
 
 They register through the same plugin API any new architecture uses.
+
+An eager kernel-backed op (``ops.matmul``, ``ops.gemv`` and the batched
+``ops.matmul`` called outside tracing) is dispatched for the device its
+tensors lie on, as the reference runs on any host: CPU tensors select on
+the CPU (``auto`` then takes the library, ``cuda`` its kernels' plain
+versions), CUDA tensors on the card, where ``auto`` and ``cuda`` launch
+the kernel or raise.  Tensors on more than one device raise.  A CUDA
+tensor never falls back to the library where a kernel is registered.
 """
 from __future__ import annotations
 

@@ -171,8 +171,11 @@ def constant(value):
 # ---------------------------------------------------------------------------
 
 def _registry_call(kk_opname: str, *args, **kwargs):
+    """An eager kernel-backed op, dispatched for the device its tensors
+    lie on (``backends/builtin.py`` states the rule)."""
     from repro_torch.core import registry
-    fn = registry.dispatch(kk_opname)
+    from repro_torch.core.options import current_options
+    fn = registry.dispatch(kk_opname, current_options().for_tensors(args))
     return fn(*args, **kwargs)
 
 

@@ -74,6 +74,24 @@ class CompileOptions:
                 "pass device='cpu' to run the plain versions on the host")
         return self.device
 
+    def for_tensors(self, tensors) -> "CompileOptions":
+        """These options with ``device`` taken from the tensors of an
+        eager call: CPU tensors run on the CPU and CUDA tensors on the
+        card, whatever ``device`` says.  Tensors on more than one device
+        raise; with no tensor among them the options are returned as
+        they are."""
+        kinds = {t.device.type for t in tensors
+                 if isinstance(t, torch.Tensor)}
+        if not kinds:
+            return self
+        if len(kinds) > 1 or not kinds <= set(DEVICES):
+            raise ValueError(f"operands on {sorted(kinds)}: an eager call "
+                             "takes tensors on one device, the CPU or the "
+                             "card")
+        (kind,) = kinds
+        return self if kind == self.device else \
+            dataclasses.replace(self, device=kind)
+
     def backend(self):
         """Resolve ``target`` to its registered Backend object."""
         from repro_torch.core import backend as backend_mod

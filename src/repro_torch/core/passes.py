@@ -532,12 +532,16 @@ def linalg_to_parallel(graph: Graph,
             fn = refs.region_ref(region)
         else:
             fn = refs.op_ref(op.opname, op.attrs)
+        carried = {k: v for k, v in op.attrs.items()
+                   if k in ("axis", "keepdims", "ops")}
+        if "exponent" in op.attrs:
+            # a 0-d array: the kernel generator spells it, and the IR
+            # printer skips arrays, so the dump stays the reference's
+            carried["exponent"] = np.asarray(float(op.attrs["exponent"]))
         new = Op(opname, op.operands,
                  [r.type for r in op.results],
                  attrs={"kind": kind, "fn": fn, "src": op.opname,
-                        "nest": nest, "iter_space": shape,
-                        **{k: v for k, v in op.attrs.items()
-                           if k in ("axis", "keepdims", "ops")}},
+                        "nest": nest, "iter_space": shape, **carried},
                  regions=regions)
         graph.replace_op(op, [new], dict(zip(op.results, new.results)))
         lowered += 1

@@ -66,6 +66,17 @@ def nvcc() -> str:
     return found
 
 
+def sass(ks: KernelSource) -> str:
+    """The SASS of ``ks``'s library (built if needed), as the toolkit's
+    ``cuobjdump -sass`` prints it: what the card runs, for checks that a
+    kernel really issues the instructions its design names."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    lib = build_all([ks])[0]
+    return subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+
+
 def csrc(name: str) -> str:
     """The text of a hand-written source in ``csrc/``."""
     return (CSRC / name).read_text()

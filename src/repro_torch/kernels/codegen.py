@@ -36,6 +36,10 @@ CPP_SCALAR = {
     "linalg.rsqrt": "lapis_rsqrt({0})",
 }
 
+# every op a generated body can spell: the table above, and the power,
+# whose exponent rides in the op's attrs
+SPELLED = frozenset(CPP_SCALAR) | {"linalg.power"}
+
 # IR dtype name → the C element type the loads and stores are typed on
 C_TYPES = {"float32": "float", "bfloat16": "__nv_bfloat16",
            "float16": "__half"}

@@ -27,7 +27,8 @@
 //
 // Bound: the FP32 FFMA rate outside the tensor cores for the unmasked
 // (q, k) pairs (4 * D operations each); bytes at HBM bandwidth for short
-// sequences.  wgmma / TMA tiles are later work.
+// sequences.  This is the f32 path: tensor cores would not meet its bar.
+// bf16 runs flash_attention_sm90.cu (wgmma fed by TMA).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -229,12 +230,4 @@ extern "C" int lapis_flash_attention_f32(const void* q, const void* k, const voi
                                          float scale, float softcap, void* stream) {
   return launch<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, strides, causal, window,
                        scale, softcap, stream);
-}
-extern "C" int lapis_flash_attention_bf16(const void* q, const void* k, const void* v,
-                                          void* out, int batch, int hq, int hkv, int sq,
-                                          int skv, int d, const long* strides, int causal,
-                                          int window, float scale, float softcap,
-                                          void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, sq, skv, d, strides, causal,
-                               window, scale, softcap, stream);
 }

@@ -33,15 +33,18 @@ from repro_torch.kernels import _build, codegen
 
 def one_op_region(op: Op) -> Region:
     """An unfused map nest as a one-op region: the nest's ``src`` opname
-    over fresh block arguments mirroring its operands (the nest's
-    ``fn`` is a torch closure, which no kernel can be made from)."""
+    over fresh block arguments mirroring its operands, with the
+    exponent a power's nest carries (the nest's ``fn`` is a torch
+    closure, which no kernel can be made from)."""
     src = op.attrs.get("src", "")
-    if src not in codegen.CPP_SCALAR:
+    if src not in codegen.SPELLED:
         raise NotImplementedError(
-            f"no generated kernel for an unfused {src!r} nest (its "
-            "lowered attrs do not carry what the C++ body needs)")
+            f"no generated kernel for an unfused {src!r} nest (no C++ "
+            "spelling)")
     args = [Value(o.type) for o in op.operands]
-    sub = Op(src, args, [op.results[0].type])
+    attrs = {"exponent": float(op.attrs["exponent"])} \
+        if src == "linalg.power" else {}
+    sub = Op(src, args, [op.results[0].type], attrs=attrs)
     return Region(inputs=args, ops=[sub], outputs=[sub.results[0]])
 
 

@@ -265,11 +265,10 @@ register("kk.rglru_scan", "cuda")(
 
 def serving_kernel_sources() -> list:
     """The kernel libraries the serving paths launch besides the page
-    gather: decode attention, RMSNorm, flash attention and the two
-    recurrent scans."""
+    gather: decode attention, RMSNorm, flash attention (f32 and bf16)
+    and the two recurrent scans."""
     return [_da.decode_attention_kernel(), _rn.rmsnorm_kernel(),
-            _fa.flash_attention_kernel(), _rw.rwkv6_kernel(),
-            _rg.rglru_kernel()]
+            *_fa.kernel_sources(), _rw.rwkv6_kernel(), _rg.rglru_kernel()]
 
 
 def kernel_sources(graph) -> list:
@@ -299,7 +298,7 @@ def kernel_sources(graph) -> list:
         elif op.opname == "kokkos.page_gather":
             out.append(_pk.page_gather_kernel())
         elif op.opname == "kk.attention":
-            out.append(_fa.flash_attention_kernel())
+            out.extend(_fa.kernel_sources())
         elif op.opname in KOKKOS_PARALLEL_OPS and \
                 not op.attrs.get("collapse"):
             if op.attrs["kind"] == "reduce":

@@ -340,3 +340,55 @@ def test_decode_attention_split_plan_covers_every_position(rows, positions):
     assert (n - 1) * chunk < max(positions, 1)
     if n > 1:
         assert chunk >= tda.MIN_CHUNK and rows * (n - 1) < tda.SPLIT_BLOCKS
+
+
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_sm90_launch_plan_fits_the_card(d):
+    """The bf16 kernel's tiles for every head dim: 128 query rows, KV tiles
+    of 128 in three stages up to D = 128 and of 64 in two above, D padded
+    to whole 64-column swizzle atoms, and the dynamic shared memory inside
+    the 232,448 bytes a block may use; O (D / 2 f32 registers a consumer
+    thread at the padded width) stays at 128 or fewer."""
+    plan = tfa.sm90_plan(d)
+    dp = plan["padded_dim"]
+    assert dp % 64 == 0 and d <= dp < d + 64
+    assert plan["block_q"] == 128
+    assert (plan["block_kv"], plan["stages"]) == \
+        ((128, 3) if dp <= 128 else (64, 2))
+    q_bytes = plan["block_q"] * dp * 2
+    ring = plan["stages"] * 2 * plan["block_kv"] * dp * 2
+    assert plan["smem_bytes"] == 1024 + q_bytes + ring + 8 * (
+        1 + 3 * plan["stages"])
+    assert plan["smem_bytes"] <= tfa.SMEM_LIMIT
+    assert dp // 2 <= 128
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_tma_eligibility_of_views():
+    """TMA reads an operand in place when D is contiguous, the base is
+    16-byte aligned and every other stride of an extent above 1 is a
+    positive multiple of 16 bytes; anything else is made contiguous by
+    the wrapper before the kernel reads it."""
+    assert tfa.tma_ready(_bf16(2, 4, 100, 128))
+    # the model's (B, S, H, D) projections transposed to (B, H, S, D)
+    assert tfa.tma_ready(_bf16(2, 100, 12, 128).transpose(1, 2))
+    assert tfa.tma_ready(_bf16(1, 2040, 1, 256).transpose(1, 2))
+    assert tfa.tma_ready(_bf16(2, 4, 100, 16))
+    # a base 2 bytes past alignment
+    n = 2 * 4 * 100 * 128
+    flat = _bf16(8 + n)
+    assert flat.data_ptr() % 16 == 0
+    assert not tfa.tma_ready(flat[1:1 + n].view(2, 4, 100, 128))
+    assert tfa.tma_ready(flat[8:8 + n].view(2, 4, 100, 128))
+    # a position stride of 72 bytes (a 32-column slice of 36)
+    assert not tfa.tma_ready(_bf16(1, 2, 8, 36)[..., :32])
+    assert tfa.tma_ready(_bf16(1, 2, 8, 72)[..., :32])
+    # D not contiguous, or a head axis broadcast with stride 0
+    assert not tfa.tma_ready(_bf16(1, 2, 64, 32).transpose(2, 3))
+    assert not tfa.tma_ready(_bf16(1, 1, 64, 32).expand(1, 4, 64, 32))
+    # an extent of 1 leaves its stride free
+    one = _bf16(1, 4, 1, 64)
+    assert tfa.tma_ready(one.as_strided(one.shape, (999, 64, 3, 1)))

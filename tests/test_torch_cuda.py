@@ -342,15 +342,132 @@ def test_flash_attention_kernel_matches_plain(card, rng, hq, hkv, sq, skv,
     q = _randn(rng, (b, hq, sq, d), dtype=dtype)
     k = _randn(rng, (b, hkv, skv, d), dtype=dtype)
     v = _randn(rng, (b, hkv, skv, d), dtype=dtype)
-    before = fa_mod.flash_attention.launches
-    got = fa_mod.flash_attention(q, k, v, causal=causal, window=window,
-                                 logit_softcap=softcap)
-    torch.cuda.synchronize()
-    assert fa_mod.flash_attention.launches == before + 1
+    got = _flash_launch(q, k, v, causal=causal, window=window,
+                        logit_softcap=softcap)
     want = ref.attention(q, k, v, causal=causal, window=window,
                          logit_softcap=softcap)
     tol = _TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _flash_launch(q, k, v, **kw):
+    """One flash_attention call that must launch the kernel of its dtype
+    (bf16: the wgmma / TMA kernel; f32: the FFMA kernel), once."""
+    f = fa_mod.flash_attention
+    before = (f.launches, f.launches_sm90, f.launches_ffma, f.plain_calls)
+    got = f(q, k, v, **kw)
+    torch.cuda.synchronize()
+    sm90 = q.dtype == torch.bfloat16
+    assert (f.launches, f.launches_sm90, f.launches_ffma, f.plain_calls) == (
+        before[0] + 1, before[1] + sm90, before[2] + (not sm90), before[3])
+    return got
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window,d", [
+    (2, 4, 2, 64, 256, True, None, 96),     # Sq < Skv, causal (top-left)
+    (2, 4, 2, 70, 130, True, None, 16),
+    (2, 2, 1, 129, 129, True, None, 64),    # a query tail of 1 row
+    (2, 2, 2, 1, 200, False, None, 192),    # one query row
+    (2, 4, 4, 257, 257, False, None, 64),   # a KV tail of 1 row
+    (2, 3, 3, 200, 200, True, 64, 192),
+    (1, 2, 2, 10, 0, False, None, 64)])     # no key at all: zeros
+def test_flash_attention_sm90_edges_match_plain(card, rng, b, hq, hkv, sq,
+                                                skv, causal, window, d):
+    q = _randn(rng, (b, hq, sq, d), dtype=torch.bfloat16)
+    k = _randn(rng, (b, hkv, skv, d), dtype=torch.bfloat16)
+    v = _randn(rng, (b, hkv, skv, d), dtype=torch.bfloat16)
+    got = _flash_launch(q, k, v, causal=causal, window=window)
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    empty = want.isnan()     # rows with no valid key: 0 from the kernel
+    assert got[empty].eq(0).all()
+    torch.testing.assert_close(got.float()[~empty], want.float()[~empty],
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_sm90_views_go_to_the_kernel(card, rng):
+    """Transposed views are read in place (the same bits as contiguous
+    copies); a view TMA cannot address (a base 2 bytes off alignment) is
+    made contiguous and still launches the bf16 kernel."""
+    bf = torch.bfloat16
+    q = _randn(rng, (2, 100, 12, 128), dtype=bf).transpose(1, 2)
+    k = _randn(rng, (2, 100, 2, 128), dtype=bf).transpose(1, 2)
+    v = _randn(rng, (2, 100, 2, 128), dtype=bf).transpose(1, 2)
+    assert all(fa_mod.tma_ready(t) for t in (q, k, v))
+    got = _flash_launch(q, k, v)
+    want = _flash_launch(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    n = 2 * 12 * 100 * 128
+    flat = _randn(rng, (n + 1,), dtype=bf)
+    q_off = flat[1:].view(2, 12, 100, 128)
+    assert not fa_mod.tma_ready(q_off)
+    got = _flash_launch(q_off, k, v)
+    torch.testing.assert_close(
+        got, _flash_launch(q_off.contiguous(), k, v), rtol=0, atol=0)
+
+
+def test_flash_attention_sm90_plan_is_the_launchers(card):
+    """The wrapper's plan (tile sizes, shared memory) is the CUDA
+    launcher's own, for every head dim."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    lib = _build.load(fa_mod.flash_attention_sm90_kernel())
+    plan = (ctypes.c_int * 5)()
+    for d in range(16, 257, 16):
+        lib.lapis_flash_sm90_plan(d, plan)
+        p = fa_mod.sm90_plan(d)
+        assert list(plan) == [p["block_q"], p["block_kv"], p["stages"],
+                              p["padded_dim"], p["smem_bytes"]]
+
+
+def test_flash_attention_sm90_sass_has_wgmma_and_tma(card):
+    """The bf16 library issues warpgroup MMAs (HGMMA) and TMA tile loads
+    (UTMALDG): the tensor cores and the copy engine its design names."""
+    from repro_torch.kernels import _build
+    text = _build.sass(fa_mod.flash_attention_sm90_kernel())
+    assert "HGMMA" in text and "UTMALDG" in text
+
+
+def _attention_f64(q, k, v, *, causal=True, window=None):
+    """The attention of bf16 inputs evaluated in f64, batch by batch."""
+    out = []
+    rep = q.shape[1] // k.shape[1]
+    sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    for i in range(q.shape[0]):
+        kb = k[i].double().repeat_interleave(rep, 0)
+        vb = v[i].double().repeat_interleave(rep, 0)
+        s = torch.einsum("hqd,hkd->hqk", q[i].double(), kb) * d ** -0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+        out.append(torch.einsum("hqk,hkd->hqd", p, vb))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 12, 2, 2048, 128, None),       # qwen2-1.5b prefill
+    (4, 16, 1, 2040, 256, 2048)])      # recurrentgemma-9b local attention
+def test_flash_attention_sm90_error_near_the_plain_versions(card, rng, b, hq,
+                                                            hkv, s, d,
+                                                            window):
+    """At both headline shapes the bf16 kernel's mean |error| against an
+    f64 evaluation is at most twice the plain version's: both round the
+    output to bf16 once, the kernel also rounds P before P.V."""
+    bf = torch.bfloat16
+    q = _randn(rng, (b, hq, s, d), dtype=bf)
+    k = _randn(rng, (b, hkv, s, d), dtype=bf)
+    v = _randn(rng, (b, hkv, s, d), dtype=bf)
+    got = _flash_launch(q, k, v, window=window)
+    plain = ref.attention(q, k, v, window=window)
+    exact = _attention_f64(q, k, v, window=window)
+    err_k = float((got.double() - exact).abs().mean())
+    err_p = float((plain.double() - exact).abs().mean())
+    assert err_k <= 2.0 * err_p, (err_k, err_p)
 
 
 def test_flash_attention_kernel_reads_transposed_views(card, rng):

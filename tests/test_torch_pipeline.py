@@ -174,3 +174,72 @@ def test_convert_carries_bf16_and_f32_leaves():
     bf = out["nested"][0]
     assert isinstance(out["nested"], list) and bf.dtype == torch.bfloat16
     assert bf.float().tolist() == [1.5, -2.0, 3.25]
+
+
+def _power_of_product(o):
+    return lambda x, w: o.power(o.matmul(x, w), 2.0)
+
+
+def test_unfused_power_compiles_for_cuda_and_matches_reference():
+    """The power after a product fuses with nothing, so it lowers to a
+    one-op nest; on ``cuda`` that nest's kernel is generated (its source
+    spells the exponent) and, on CPU tensors, dispatch runs its plain
+    version, equal to the reference's ``xla`` result."""
+    from repro_torch.core import ops as tops
+    from repro_torch.kernels import ops as kops
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 16)).astype(np.float32)
+    w = rng.standard_normal((16, 4)).astype(np.float32)
+    mod = tpipe.compile(_power_of_product(tops),
+                        TensorSpec((8, 16), "float32"),
+                        TensorSpec((16, 4), "float32"),
+                        options=TOptions(target="cuda", device="cpu"))
+    (nest,) = [op for op in mod.graph.ops
+               if op.opname == "kokkos.team_parallel"]
+    assert nest.attrs["src"] == "linalg.power" and not nest.regions
+    assert any("powf(x[0], 2.0f)" in ks.source
+               for ks in kops.kernel_sources(mod.graph))
+    before = generic.block_map_region.plain_calls
+    got = mod(torch.from_numpy(x), torch.from_numpy(w))
+    assert generic.block_map_region.plain_calls == before + 1
+    jmod = jpipe.compile(_power_of_product(jops),
+                         jax.ShapeDtypeStruct((8, 16), np.float32),
+                         jax.ShapeDtypeStruct((16, 4), np.float32),
+                         options=JOptions(target="xla"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jmod(x, w)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shapes", [((4, 5), (5, 3)), ((4, 5), (5,)),
+                                    ((3, 4, 5), (3, 5, 2))],
+                         ids=["matmul", "gemv", "batched"])
+def test_eager_kernel_ops_on_cpu_tensors_match_reference(shapes):
+    """Eager ``ops.matmul`` / ``ops.gemv`` / batched ``ops.matmul`` with
+    the default options (``target="auto"``, ``device="cuda"``) on CPU
+    tensors run on the CPU, as the reference runs on any host."""
+    from repro_torch.core import ops as tops
+    from repro_torch.core.options import current_options
+    assert current_options().device == "cuda"
+    rng = np.random.default_rng(1)
+    a, b = (rng.standard_normal(s).astype(np.float32) for s in shapes)
+    fn = "gemv" if len(shapes[1]) == 1 else "matmul"
+    got = getattr(tops, fn)(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(getattr(jops, fn)(a, b)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_eager_kernel_ops_on_mixed_devices_raise():
+    """Operands on two devices (``meta`` stands in for the card) raise
+    before any implementation is chosen; a lone non-CPU device goes to
+    the card's selection, never to the CPU's library."""
+    from repro_torch.core import ops as tops
+    cpu, meta = torch.zeros(4, 5), torch.empty((5, 3), device="meta")
+    with pytest.raises(ValueError, match="one device"):
+        tops.matmul(cpu, meta)
+    with pytest.raises(ValueError, match="one device"):
+        tops.gemv(cpu, torch.empty((5,), device="meta"))
+    assert TOptions(device="cpu").for_tensors([cpu]).device == "cpu"
+    assert TOptions(device="cpu").for_tensors([3.0]).device == "cpu"
+    assert TOptions().for_tensors([cpu, cpu]).device == "cpu"
