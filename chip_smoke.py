@@ -8,7 +8,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. print the card (``nvidia-smi``) and build every hand kernel of the
    main paths from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
    all builds started together; fail unless the bf16 flash library's
-   SASS (``cuobjdump -sass``) holds HGMMA (wgmma) and UTMALDG (TMA);
+   SASS (``cuobjdump -sass``) holds HGMMA (wgmma) and UTMALDG (TMA), the
+   decode-attention library's bf16 kernels HMMA (``mma.sync``) and both
+   its kernels LDGSTS (``cp.async``), and every small batched-product
+   library's kernels LDGSTS;
 2. hold each kernel against its plain torch version on the card at the
    shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
    block at its published widths; SpMV and SpMM on the sparse test
@@ -46,7 +49,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bf16 on the wgmma kernel and f32 on the FFMA one; each timed in bf16
    beside its bound, its plain version and one library call
    (``F.rms_norm``, ``F.scaled_dot_product_attention``), and the FFMA
-   flash kernel in f32 at the same shape beside SDPA in f32;
+   flash kernel in f32 at the same shape beside SDPA in f32; the bf16
+   decode kernel's mean |error| against an f64 evaluation at most twice
+   the plain version's (it rounds P to bf16 before P.V);
 8. serving qwen2-1.5b at its published widths (28 layers, seeded bf16
    weights): ``repro_torch.launch.serve.main`` with ``--paged --target
    cuda`` over 16 ragged requests (prompts up to 512, up to 32 new
@@ -65,9 +70,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    zero and from a given state, the final state included, and at the
    sweep shapes of ``tests/test_kernels.py``; flash attention at
    recurrentgemma's 16 / 1 heads x 256 with window 2048 and decode
-   attention over its 2048-slot ring; each timed in bf16 beside its
-   bound, its plain version and, for attention, SDPA (no one torch call
-   computes a scan);
+   attention over its 2048-slot ring (with the same f64 error gate as
+   phase 7); each timed in bf16 beside its bound, its plain version and,
+   for attention, SDPA (no one torch call computes a scan);
 10. serving rwkv6-3b at its published widths (32 layers, seeded bf16
     weights): ``repro_torch.launch.serve.main`` (the wave loop) over 8
     requests in waves of 4, 512-token prompts, 32 new tokens, through
@@ -224,6 +229,12 @@ def bound(bytes_moved: float, ops: float,
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` text split into {kernel symbol: its SASS}."""
+    parts = re.split(r"Function : (\S+)", text)
+    return dict(zip(parts[1::2], parts[2::2]))
 
 
 def synth_csr(torch, n_rows: int, nnz_mean: float, nnz_max: int, gen):
@@ -468,6 +479,35 @@ def main() -> int:
           "UTMALDG (TMA tile loads)", flush=True)
     if not n_hgmma or not n_tma:
         fail("the bf16 flash library issues no wgmma or no TMA load")
+    # the redesigned kernels: decode attention's bf16 kernels on the tensor
+    # cores (mma.sync) and every K / V ring and small-product ring filled by
+    # cp.async (or TMA)
+    da_fns = sass_functions(_build.sass(da.decode_attention_kernel()))
+    small_fns = {}
+    for ks in dict.fromkeys(sources):
+        if ks.name == "batched_gemm" and ("LAPIS_SMALL", 1) in ks.defines:
+            small_fns.update({f"{n} {ks.defines}": body for n, body in
+                              sass_functions(_build.sass(ks)).items()
+                              if "lapis_bgemm_small" in n})
+    checks = [(n, body, ("HMMA", "LDGSTS") if "da_bf16_kernel" in n
+               else ("LDGSTS",)) for n, body in da_fns.items()
+              if "da_bf16_kernel" in n or "da_f32_kernel" in n]
+    checks += [(n, body, ("LDGSTS",)) for n, body in small_fns.items()]
+    if not any("da_bf16_kernel" in n for n, _, _ in checks) or \
+            not small_fns:
+        fail("no decode-attention bf16 kernel or no small batched kernel "
+             "in the SASS")
+    for n, body, need in checks:
+        if not all(w in body or (w == "LDGSTS" and "UTMALDG" in body)
+                   for w in need):
+            fail(f"{n} SASS lacks {need}")
+    print(f"decode_attention.cu SASS: {len(checks) - len(small_fns)} "
+          f"kernels, {sum(b.count('HMMA') for b in da_fns.values())} HMMA "
+          f"(mma.sync), {sum(b.count('LDGSTS') for b in da_fns.values())} "
+          f"LDGSTS (cp.async); small batched_gemm.cu SASS: "
+          f"{len(small_fns)} kernels, each with LDGSTS "
+          f"({sum(b.count('LDGSTS') for b in small_fns.values())} in all)",
+          flush=True)
 
     # ---------------------------------------------------------------- 2
     worst = {n: 0.0 for n in wrappers}
@@ -904,6 +944,33 @@ def main() -> int:
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
+    def decode_f64_gate(q, kc, vc, lens, what) -> tuple:
+        """The bf16 kernel's mean |error| against an f64 evaluation, at
+        most twice the plain version's (rows with a valid position)."""
+        b_, hq_, d_ = q.shape
+        hkv_, s_ = kc.shape[1], kc.shape[2]
+        pos = torch.arange(s_, device=dev)
+        logits = torch.einsum("bhgd,bhsd->bhgs",
+                              q.double().view(b_, hkv_, hq_ // hkv_, d_),
+                              kc.double()) * d_ ** -0.5
+        logits = logits.masked_fill(~(pos < lens[:, None, None, None]),
+                                    float("-inf"))
+        exact = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(logits, -1),
+                             vc.double()).reshape(b_, hq_, d_)
+        keep = lens > 0
+        got = da.decode_attention(q, kc, vc, lens)
+        plain = ref.decode_attention(q, kc, vc, lens)
+        err_k = float((got.double() - exact)[keep].abs().mean())
+        err_p = float((plain.double() - exact)[keep].abs().mean())
+        ok = err_k <= 2.0 * err_p
+        print(f"  decode_attention {what} bf16 mean |error| vs f64: kernel "
+              f"{err_k:.3e}, plain {err_p:.3e} (limit 2x) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"decode_attention {what}: bf16 kernel error {err_k:.3e} "
+                 f"over twice the plain version's {err_p:.3e}")
+        return err_k, err_p
+
     # ragged decode lengths, 0, 1 and S among them
     dec_len = torch.tensor([0, 1, s_dec, 17, 1000, 2047, 513, 64],
                            dtype=torch.int32, device=dev)
@@ -1008,6 +1075,11 @@ def main() -> int:
           f"{b_ms:.6f} by {b_by}; {bytes_n / t_k / 1e6:.0f} GB/s)",
           flush=True)
     add_row("decode_attention", t_k, t_p, t_l, ops_n, bytes_n)
+    decode_stats = {"qwen2_bf16": {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+        "f64_mean_err": decode_f64_gate(q, kc, vc, dec_len,
+                                        f"{SERVE_SLOTS}x{heads}/{kv_heads}"
+                                        f"x{hd}")}}
     qf = rand_t((1, heads, s_dec, hd), bf)
     kf = rand_t((1, kv_heads, s_dec, hd), bf)
     vf = rand_t((1, kv_heads, s_dec, hd), bf)
@@ -1391,8 +1463,12 @@ def main() -> int:
           f"{t_l:.4f}, bound {b_ms:.6f} by {b_by}; "
           f"{bytes_n / t_k / 1e6:.0f} GB/s)", flush=True)
     add_row("decode_attention", t_k, t_p, t_l, ops_n, bytes_n)
-    recurrent_kernel_stats["decode_attention_ring"] = {
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms}
+    recurrent_kernel_stats["decode_attention_ring"] = decode_stats[
+        "recurrentgemma_bf16"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+        "f64_mean_err": decode_f64_gate(q, kc, vc, ring_len,
+                                        f"ring {rg_b}x{rg_hq}/{rg_hkv}x"
+                                        f"{rg_hd}")}
     rows["rwkv6_scan"]["peak"] = rows["rglru_scan"]["peak"] = PEAK_FP32_PER_S
     del qf, kf, vf, q, kc, vc, ins
     torch.cuda.empty_cache()
@@ -1831,6 +1907,7 @@ def main() -> int:
                       "decode_step_launches": per_step,
                       "recurrent_kernels": recurrent_kernel_stats,
                       "flash_attention": flash_stats,
+                      "decode_attention": decode_stats,
                       "serve_rwkv6_3b": rwkv_stats,
                       "serve_recurrentgemma_9b": rg_stats,
                       "batched": batched_stats, "resnet18": resnet_stats,

@@ -10,9 +10,10 @@ The map_parallelism pass picks one of two kernels of
 ``csrc/batched_gemm.cu`` (``tiling["vectorize_batch"]``):
 
 * :func:`batched_gemm_small` — ``m·n <= compute_unit²/4`` (1024 on the
-  H100): a block owns ``batch_block`` whole matrices and contracts them
-  from shared memory in groups that fit (the reference's
-  ``_small_kernel``);
+  H100): a block owns at most ``batch_block`` whole matrices, as many as
+  bring the grid to two blocks per SM (:func:`small_plan`), computes a
+  few at once from a two-stage ``cp.async`` ring in shared memory, each
+  thread a 4 × 4 register micro-tile (the reference's ``_small_kernel``);
 * :func:`batched_gemm_tiled` — larger matrices: the (bm, bn, bk) tile
   loop of ``kk.gemm`` with the matrix on the grid's third axis (the
   reference's ``_tiled_kernel``).
@@ -32,8 +33,12 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import matmul as _mm
 
-SMALL_THREADS = 256     # threads of a small-kernel block (batched_gemm.cu)
-SMALL_OUT = 8           # outputs each of them accumulates
+# the small kernel's launch plan (csrc/batched_gemm.cu, -DLAPIS_SMALL)
+SMALL_TN = 4                # output columns a thread owns
+SMALL_MAX_OUTPUTS = 2048    # m·n it takes
+SMALL_TM4_THREADS = 256     # most threads a matrix at tm >= 4
+SMALL_BLOCK_THREADS = 128   # threads a block aims for
+SMALL_TARGET_BLOCKS = 2 * 132   # two blocks per H100 SM
 _FNS = {(torch.float32, torch.float32): "lapis_batched_gemm_f32",
         (torch.bfloat16, torch.bfloat16): "lapis_batched_gemm_bf16",
         (torch.bfloat16, torch.float32): "lapis_batched_gemm_bf16_f32out"}
@@ -65,29 +70,85 @@ def default_tiling(a_shape, b_shape, itemsize: int) -> dict:
                 batch_block=batch_block, vectorize_batch=small)
 
 
-def _small_bytes(m: int, n: int, bk: int) -> int:
-    """Shared memory one matrix's staged A and B chunks take."""
-    return 4 * (m * (bk + 1) + bk * n)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _rup(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+def _small_tm(m: int, n: int) -> int:
+    """Output rows a thread owns: 4, m below 3, and 8 only where 4 would
+    need more than 256 threads a matrix (m > 1024 at n = 1)."""
+    if m <= 2:
+        return m
+    return 4 if _cdiv(m, 4) * _cdiv(n, SMALL_TN) <= SMALL_TM4_THREADS \
+        else 8
+
+
+def _small_tile(m: int, n: int, bk: int, itemsize: int) -> int:
+    """Shared memory one matrix's staged A and B chunks take: A's rows
+    ``bk`` plus 16 bytes of padding, padded to whole micro-tile rows; B's
+    ``bk`` rows padded to whole 16-byte pieces and micro-tile columns."""
+    vec = 16 // itemsize
+    ldb = _rup(_rup(n, SMALL_TN), vec)
+    return itemsize * (_rup(m, _small_tm(m, n)) * (bk + vec) + bk * ldb)
+
+
+def small_plan(m: int, n: int, k: int, batch: int, batch_block: int,
+               itemsize: int, bk: int) -> dict:
+    """The small kernel's launch for ``batch`` products m×k · k×n of
+    ``itemsize``-byte inputs, built with chunk ``bk`` (the twin of
+    ``small_plan`` in ``csrc/batched_gemm.cu``, held to it on the card):
+
+    * ``tm`` × 4 outputs a thread (:func:`_small_tm`), so ``tpm``
+      threads a matrix (at most 256 for ``tm`` >= 4, 512 otherwise);
+    * ``per_block`` matrices a block: at most ``batch_block``, and no
+      more than keeps the grid at two blocks per SM;
+    * ``teams`` of them computed at once (a block of about 128 threads);
+    * ``bk``: the K chunk of one stage, the library's at most (a multiple
+      of 8), halved until two stages of one matrix fit shared memory;
+    * ``stages``: two when a block has more than one (round, chunk)
+      stage, so the next one's loads overlap this one's FMAs."""
+    tm = _small_tm(m, n)
+    tpm = _cdiv(m, tm) * _cdiv(n, SMALL_TN)
+    chunk = max(8, min(_rup(max(bk, 8), 8), _rup(k, 8)))
+    while chunk > 8 and 2 * _small_tile(m, n, chunk, itemsize) > \
+            _mm.MAX_SMEM_BYTES:
+        chunk = max(8, _rup(chunk // 2, 8))
+    tile = _small_tile(m, n, chunk, itemsize)
+    per_block = max(1, min(batch_block, batch // SMALL_TARGET_BLOCKS))
+    teams = max(1, min(per_block, SMALL_BLOCK_THREADS // tpm))
+    while teams > 1 and 2 * teams * tile > _mm.MAX_SMEM_BYTES:
+        teams -= 1
+    stages = 2 if _cdiv(per_block, teams) * max(1, _cdiv(k, chunk)) > 1 \
+        else 1
+    return {"tm": tm, "tpm": tpm, "teams": teams, "per_block": per_block,
+            "grid": _cdiv(batch, per_block), "threads": teams * tpm,
+            "bk": chunk, "stages": stages,
+            "smem_bytes": stages * teams * tile}
 
 
 def check_tiling(tiling: dict, m: int, n: int) -> tuple:
     """(small, bm, bn, bk, batch_block) the kernel runs for this tiling
     on m×n outputs, else ValueError.  The tiled kernel takes what
-    ``kk.gemm``'s tile loop takes.  The small kernel stages K in chunks
-    of ``bk`` (the reference's small kernel holds whole matrices), halved
-    until one matrix's chunks fit a block's shared memory, and needs one
-    matrix's outputs within its threads' registers."""
+    ``kk.gemm``'s tile loop takes.  The small kernel is built to stage K
+    in chunks of at most ``bk`` (the reference's small kernel holds whole
+    matrices), halved until one matrix's f32 chunks fit a block's shared
+    memory, and takes up to ``SMALL_MAX_OUTPUTS`` outputs a matrix (512
+    threads of 4 × 1 micro-tiles at m = 1)."""
     if not _is_small(tiling, m, n):
         bm, bn, bk = _mm.check_tiling(tiling)
         return False, bm, bn, bk, 1
     bk = int(tiling["bk"])
     bb = int(tiling.get("batch_block") or 1)
-    if bk < 1 or bb < 1 or m * n > SMALL_THREADS * SMALL_OUT:
+    if bk < 1 or bb < 1 or m * n > SMALL_MAX_OUTPUTS:
         raise ValueError(
             f"small batched kernel cannot run bk={bk} batch_block={bb} on "
             f"{m}x{n} matrices: needs bk, batch_block >= 1 and m*n <= "
-            f"{SMALL_THREADS * SMALL_OUT}")
-    while bk > 1 and _small_bytes(m, n, bk) > _mm.MAX_SMEM_BYTES:
+            f"{SMALL_MAX_OUTPUTS}")
+    while bk > 1 and _small_tile(m, n, bk, 4) > _mm.MAX_SMEM_BYTES:
         bk //= 2
     return True, 0, 0, bk, bb
 
@@ -114,7 +175,7 @@ def _launcher(key: tuple, in_dtype, out_dtype):
                             f"not {in_dtype} → {out_dtype}")
         fn = getattr(_build.load(batched_gemm_kernel(*key)), name)
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int]
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LAUNCHERS[(key, in_dtype, out_dtype)] = fn
@@ -158,17 +219,13 @@ def _run(wrapper, small: bool, a: torch.Tensor, b: torch.Tensor,
     c = torch.empty(batch + (m, n), dtype=out_dtype, device=a.device)
     if c.numel() == 0:
         return c
-    group = 0
-    if small:
-        group = min(bb, nb, SMALL_THREADS * SMALL_OUT // (m * n),
-                    _mm.MAX_SMEM_BYTES // _small_bytes(m, n, bk))
-    elif -(-m // bm) > 65535:
+    if not small and -(-m // bm) > 65535:
         raise ValueError(f"batched_gemm: {m} rows need more than 65535 row "
                          f"blocks of {bm}")
     a3, sa = _batched(a, batch, m, k)
     b3, sb = _batched(b, batch, k, n)
     _build.check(fn(a3.data_ptr(), b3.data_ptr(), c.data_ptr(), nb, m, n, k,
-                    sa, sb, bb, group,
+                    sa, sb, bb,
                     torch.cuda.current_stream(a.device).cuda_stream),
                  "batched_gemm")
     wrapper.launches += 1

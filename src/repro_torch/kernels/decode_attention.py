@@ -4,15 +4,17 @@
 Decode is cache streaming: one query token per row reads its valid
 prefix of the (B, Hkv, S, hd) KV cache.  :func:`decode_attention`
 launches ``csrc/decode_attention.cu`` on CUDA tensors: the positions of
-each (row, KV head) are split into chunks, enough of them to give the
-card about two blocks per SM; a thread block sweeps one chunk's valid
-positions with 8 warps, each keeping an online softmax for a group of
-the rep = Hq / Hkv query heads (8 of them up to head dim 128, 4 above),
-merged in shared memory, and a second kernel merges the chunks of a
-row.  K and V may be broadcast over the batch with
-stride 0 (the chunked prefill hands C query rows one gathered row);
-the kernel reads them through their strides, so nothing is copied.
-On CPU tensors the wrapper runs the plain version (``ref.decode_attention``).
+each (row, KV head) are split into chunks of whole 64-position tiles,
+enough of them to give the card about two blocks per SM
+(:func:`split_plan`); a block takes every query head of its KV head
+(:func:`launch_plan`), streams its chunk's K and V tiles through a
+``cp.async`` ring in shared memory and runs the online softmax on them
+— bf16 on the tensor cores (``mma.sync``), f32 on the CUDA cores — and
+a second kernel merges the chunks of a row.  K and V may be broadcast
+over the batch with stride 0 (the chunked prefill hands C query rows
+one gathered row); the kernel reads them through their strides, so
+nothing is copied.  On CPU tensors the wrapper runs the plain version
+(``ref.decode_attention``).
 """
 from __future__ import annotations
 
@@ -25,10 +27,13 @@ from repro_torch.kernels import _build, ref
 
 MAX_HEAD_DIM = 256
 SPLIT_BLOCKS = 2 * 132   # blocks to aim for: two per H100 SM
-MIN_CHUNK = 128          # positions a block sweeps at the least
+TILE = 64                # positions of one ring stage (csrc/decode_attention.cu)
+MIN_CHUNK = TILE         # positions a block sweeps at the least
+MAX_STAGES = 3
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt in to
 _FNS = {torch.float32: "lapis_decode_attention_f32",
         torch.bfloat16: "lapis_decode_attention_bf16"}
-_LAUNCHERS: dict = {}     # dtype (or "heads_per_block") -> ctypes function
+_LAUNCHERS: dict = {}     # dtype -> ctypes function
 
 
 def decode_attention_kernel() -> _build.KernelSource:
@@ -50,32 +55,65 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
-def heads_per_block(d: int) -> int:
-    """The query heads one block keeps in registers at head dim ``d``,
-    asked of ``csrc/decode_attention.cu``, whose launcher picks them
-    (here it sizes the split plan's grid)."""
-    fn = _LAUNCHERS.get("heads_per_block")
-    if fn is None:
-        fn = _build.load(decode_attention_kernel()) \
-            .lapis_decode_attention_heads_per_block
-        fn.argtypes = [ctypes.c_int]
-        fn.restype = ctypes.c_int
-        _LAUNCHERS["heads_per_block"] = fn
-    return fn(d)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(d: int, rep: int, chunk: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch at head dim ``d``, ``rep`` query heads per KV
+    head and ``chunk`` positions per split, as ``da_plan`` in
+    ``csrc/decode_attention.cu`` computes it (held to it on the card):
+
+    * bf16: the block's query heads as ``mt`` m16 tiles (1, 2 or 4; 2 above
+      D = 128), ``heads`` = min(rep, 16·mt) of them and ``groups`` blocks
+      over a KV head's query heads (1 up to rep 64); ``wd`` of the four
+      warps split O's head dim so a thread keeps at most 128 f32 of it (64
+      above one m16 tile); rows of D
+      padded to 16 plus 16 bytes; after the last tile the ring holds the
+      4 / wd warp groups' O slices for the block's merge;
+    * f32: ``heads`` = min(rep, 32, 4096 / D) (a thread holds at most 32
+      outputs), rows of D padded to 8 plus 4 floats;
+    * ``stages`` of the K / V ring (up to 3, no more than the chunk's tiles
+      and than fits ``SMEM_LIMIT``) and the ``smem_bytes`` it all takes."""
+    tiles = max(1, _cdiv(chunk, TILE))
+    if dtype == torch.bfloat16:
+        dp = _cdiv(d, 16) * 16
+        row = 2 * dp + 16
+        mt_all = _cdiv(rep, 16)
+        mt = 1 if mt_all == 1 else 2 if (mt_all == 2 or dp > 128) else 4
+        heads = min(rep, 16 * mt)
+        ou = (16 if dp > 128 else 8) if mt == 1 else 8 // mt
+        wd = 1
+        while wd * 16 * ou < dp:
+            wd *= 2
+        wk = 4 // wd
+        fixed = 16 * mt * row      # Q
+        merge = 4 * (wk * 16 * mt * (dp + 4) + 2 * wk * 16 * mt + 2 * 16 * mt)
+    else:
+        dp = _cdiv(d, 8) * 8
+        row = 4 * (dp + 4)
+        heads = min(rep, 32, 4096 // dp)
+        mt = wd = merge = 0
+        fixed = 4 * (heads * dp + heads * TILE + 3 * heads)   # Q, P, m / l
+    stages = min(MAX_STAGES, tiles)
+    while stages > 1 and \
+            fixed + max(stages * 2 * TILE * row, merge) > SMEM_LIMIT:
+        stages -= 1
+    return {"heads": heads, "groups": _cdiv(rep, heads), "mt": mt, "wd": wd,
+            "padded_dim": dp, "stages": stages,
+            "smem_bytes": fixed + max(stages * 2 * TILE * row, merge)}
 
 
 def split_plan(rows: int, positions: int) -> tuple:
     """(number of chunks, positions per chunk) for ``rows`` (row, KV
     head, query-head group) triples over ``positions`` cached positions:
-    chunks of at least
-    ``MIN_CHUNK`` positions (a multiple of the 32 a block scores per
-    sweep), as many as bring the grid to about ``SPLIT_BLOCKS``."""
-    def ceil(a, b):
-        return -(-a // b)
-    want = max(1, min(ceil(positions, MIN_CHUNK),
-                      ceil(SPLIT_BLOCKS, max(rows, 1))))
-    chunk = max(32, ceil(ceil(positions, want), 32) * 32)
-    return max(1, ceil(positions, chunk)), chunk
+    chunks of whole ``TILE``-position ring tiles, at least ``MIN_CHUNK``
+    long, as many as bring the grid to about ``SPLIT_BLOCKS``.  It reads
+    only shapes, never ``lengths``: the card is not synchronised."""
+    want = max(1, min(_cdiv(positions, MIN_CHUNK),
+                      _cdiv(SPLIT_BLOCKS, max(rows, 1))))
+    chunk = max(TILE, _cdiv(_cdiv(positions, want), TILE) * TILE)
+    return max(1, _cdiv(positions, chunk)), chunk
 
 
 def _check(q, k_cache, v_cache, lengths) -> None:
@@ -125,7 +163,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if out.numel() == 0:
         return out
     rep = Hq // Hkv
-    groups = -(-rep // heads_per_block(D))
+    groups = launch_plan(D, rep, TILE, q.dtype)["groups"]
     n_splits, chunk = split_plan(B * Hkv * groups, S)
     part_ml = part_acc = None
     if n_splits > 1:    # each chunk's (m, l) and unnormalized acc, in f32

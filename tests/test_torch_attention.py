@@ -332,14 +332,43 @@ def test_attention_prefill_chunk_paged_matches_reference(layer, rng, target,
     (3, 90), (128, 2048), (300, 7)])
 def test_decode_attention_split_plan_covers_every_position(rows, positions):
     """The card kernel splits each row's positions into chunks: together
-    they cover the cache, each a whole number of 32-position sweeps, at
-    least 128 long unless the cache is shorter, and never more blocks
-    than needed to reach about two per SM."""
+    they cover the cache, each a whole number of the ring's 64-position
+    tiles, and never more blocks than needed to reach about two per SM."""
     n, chunk = tda.split_plan(rows, positions)
-    assert n >= 1 and chunk % 32 == 0 and n * chunk >= positions
+    assert n >= 1 and chunk % tda.TILE == 0 and n * chunk >= positions
     assert (n - 1) * chunk < max(positions, 1)
     if n > 1:
         assert chunk >= tda.MIN_CHUNK and rows * (n - 1) < tda.SPLIT_BLOCKS
+
+
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_decode_attention_launch_plan_fits_the_card(d):
+    """Every query head of a KV head in one block up to rep 64 in bf16
+    (K and V read once), m16 tiles covering the heads, O at 128 f32
+    registers a thread at most (64 above one m16 tile), and the ring (or the merge it turns into), Q and
+    the scores inside the 232,448 bytes of shared memory a block may use,
+    with at least one stage and no more stages than the chunk has
+    tiles."""
+    for rep in (1, 2, 6, 8, 9, 16, 32):
+        for chunk in (64, 128, 2048):
+            tiles = -(-chunk // tda.TILE)
+            for dtype in (torch.bfloat16, torch.float32):
+                p = tda.launch_plan(d, rep, chunk, dtype)
+                assert p["smem_bytes"] <= tda.SMEM_LIMIT
+                assert 1 <= p["stages"] <= min(tda.MAX_STAGES, tiles)
+                assert p["groups"] * p["heads"] >= rep
+                assert (p["groups"] - 1) * p["heads"] < rep
+                assert p["padded_dim"] >= d
+                if dtype == torch.bfloat16:
+                    assert p["groups"] == 1 and p["heads"] == rep
+                    assert 16 * p["mt"] >= p["heads"]
+                    units = -(-p["padded_dim"] // 16)
+                    per_warp = -(-units // p["wd"])
+                    assert p["wd"] in (1, 2, 4)
+                    assert p["mt"] * per_warp * 2 * 4 <= \
+                        (128 if p["mt"] == 1 else 64)
+                else:
+                    assert p["heads"] * p["padded_dim"] <= 4096
 
 
 @pytest.mark.parametrize("d", range(16, 257, 16))

@@ -191,6 +191,58 @@ def test_check_tiling_refuses_what_the_kernels_cannot_run():
     assert not bg.check_tiling({"bm": 32, "bn": 32, "bk": 32}, 32, 33)[0]
 
 
+def _check_small_plan(m, n, k, batch, batch_block, itemsize, bk):
+    p = bg.small_plan(m, n, k, batch, batch_block, itemsize, bk)
+    # at most batch_block matrices a block, and enough blocks to give
+    # every SM two whenever the batch has them
+    assert 1 <= p["per_block"] <= batch_block
+    assert p["grid"] == -(-batch // p["per_block"])
+    assert p["grid"] >= min(batch, bg.SMALL_TARGET_BLOCKS)
+    # tm x 4 micro-tiles cover the m x n outputs exactly: whole tiles,
+    # less than one tile of padding a side
+    tm, cols = p["tm"], bg.SMALL_TN
+    rows_t, cols_t = -(-m // tm), -(-n // cols)
+    assert p["tpm"] == rows_t * cols_t
+    assert rows_t * tm - m < tm and cols_t * cols - n < cols
+    assert p["threads"] == p["teams"] * p["tpm"] <= (256 if tm >= 4 else 512)
+    assert 1 <= p["teams"] <= p["per_block"]
+    # the K chunk keeps chunk starts 16-byte aligned; the ring fits
+    assert p["bk"] % 8 == 0 and p["bk"] >= 8
+    assert p["smem_bytes"] <= bg._mm.MAX_SMEM_BYTES
+    rounds = -(-p["per_block"] // p["teams"])
+    assert p["stages"] == (2 if rounds * max(1, -(-k // p["bk"])) > 1 else 1)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shapes", [s for s, t in _H100_TILINGS.items()
+                                    if t[0]])
+def test_small_plan_fills_the_card_at_the_pinned_tilings(shapes, itemsize):
+    _, t = _pass_tiling(*shapes, dtype="float32" if itemsize == 4
+                        else "bfloat16")
+    (batch, m, k), n = shapes[0], shapes[1][-1]
+    _check_small_plan(m, n, k, batch, t["batch_block"], itemsize, t["bk"])
+    if batch == 16384:   # every SM gets several blocks
+        assert bg.small_plan(m, n, k, batch, t["batch_block"], itemsize,
+                             t["bk"])["grid"] >= 3 * 132
+    elif batch == 256:   # Fig 6.3: one matrix a block, not 8 blocks
+        assert bg.small_plan(m, n, k, batch, t["batch_block"], itemsize,
+                             t["bk"])["grid"] == 256
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 40, 70])
+def test_small_plan_sweep(k):
+    """m, n in 1..32, a batch tail over and under two blocks per SM; and
+    the thin shapes up to 2048 outputs."""
+    for m in range(1, 33):
+        for n in range(1, 33):
+            for batch, bb in ((1, 1), (7, 32), (257, 32), (16384, 32)):
+                for itemsize in (4, 2):
+                    _check_small_plan(m, n, k, batch, bb, itemsize, 32)
+    for m, n in ((1, 2048), (2, 1024), (2048, 1), (1025, 1), (1024, 2),
+                 (3, 682), (45, 45)):
+        _check_small_plan(m, n, k, 300, 32, 4, 32)
+
+
 def test_broadcast_operand_is_read_through_stride_zero():
     b = torch.randn(24, 32)
     b3, sb = bg._batched(b, (8,), 24, 32)

@@ -316,9 +316,108 @@ def test_decode_attention_kernel_reads_a_stride0_batch(card, rng, dtype):
 
 
 def test_decode_attention_heads_per_block_comes_from_the_source(card):
-    """The split plan's head-group size is the CUDA launcher's own."""
-    assert [da_mod.heads_per_block(d) for d in (16, 64, 128, 192, 256)] == \
-        [8, 8, 8, 4, 4]
+    """The wrapper's launch plan (query heads a block takes, head groups,
+    m16 tiles, warps over D, padded D, ring stages, shared memory) is the
+    CUDA launcher's own, for every head dim, the sweep's reps and both
+    types."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    lib = _build.load(da_mod.decode_attention_kernel())
+    out = (ctypes.c_int * 7)()
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in list(range(16, 257, 16)) + [20, 36, 100]:
+            for rep in (1, 2, 6, 8, 9, 16, 20, 32, 40, 48, 64, 80):
+                for chunk in (64, 128, 2048):
+                    assert lib.lapis_decode_attention_plan(
+                        d, rep, chunk, int(dtype == torch.bfloat16), out) == 0
+                    p = da_mod.launch_plan(d, rep, chunk, dtype)
+                    assert list(out) == [
+                        p["heads"], p["groups"], p["mt"], p["wd"],
+                        p["padded_dim"], p["stages"], p["smem_bytes"]]
+
+
+def _decode_check(q, k, v, lengths, dtype, **kw):
+    """One kernel launch held to the plain version; a row with no valid
+    position is 0 from the kernel (NaN from the plain version)."""
+    before = (da_mod.decode_attention.launches,
+              da_mod.decode_attention.plain_calls)
+    got = da_mod.decode_attention(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert (da_mod.decode_attention.launches,
+            da_mod.decode_attention.plain_calls) == (before[0] + 1,
+                                                     before[1])
+    want = ref.decode_attention(q, k.contiguous(), v.contiguous(), lengths,
+                                **kw)
+    empty = want.isnan().all(-1)
+    assert got[empty].eq(0).all()
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float()[~empty], want.float()[~empty],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,s,d,window", [
+    (32, 1, 200, 64, None), (32, 1, 130, 256, None), (9, 1, 100, 80, None),
+    (1, 1, 70, 16, None), (16, 1, 333, 256, 100), (6, 1, 1000, 192, None),
+    (64, 2, 65, 128, 7), (48, 1, 100, 256, None), (40, 1, 90, 128, None),
+    (2, 1, 129, 36, None)])
+def test_decode_attention_edges_match_plain(card, rng, hq, hkv, s, d, window,
+                                            dtype):
+    """rep 1 to 64 (two head groups at rep 48 and D = 256, a padded m16
+    tile at rep 40), D from 16 to 256 (36: a row not 16-byte aligned),
+    lengths 0, 1, S and above S, S not a multiple of the 64-position tile,
+    a window."""
+    q, k, v, lens = _decode_case(rng, 5, hq, hkv, s, d, dtype,
+                                 [0, 1, s, s + 5, s // 2 + 3])
+    _decode_check(q, k, v, lens, dtype, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_reads_rows_not_16_byte_aligned(card, rng, dtype):
+    """A cache whose position stride is D + 1 elements (a view of a wider
+    one) is staged with element loads inside the same kernel, not copied."""
+    b, hkv, s, d = 3, 2, 300, 64
+    q = _randn(rng, (b, 12, d), dtype=dtype)
+    k = _randn(rng, (b, hkv, s, d + 1), dtype=dtype)[..., :d]
+    v = _randn(rng, (b, hkv, s, d + 1), dtype=dtype)[..., :d]
+    assert k.stride(2) == d + 1
+    lens = torch.tensor([300, 17, 150], dtype=torch.int32, device="cuda")
+    _decode_check(q, k, v, lens, dtype)
+
+
+def test_decode_attention_bf16_error_near_the_plain_versions(card, rng):
+    """At both serving shapes the bf16 kernel's mean |error| against an f64
+    evaluation is at most twice the plain version's: both round the output
+    to bf16 once, the kernel also rounds P to bf16 before P.V."""
+    bf = torch.bfloat16
+    for b, hq, hkv, s, d, lengths in (
+            (8, 12, 2, 2048, 128, [0, 1, 2048, 17, 1000, 2047, 513, 64]),
+            (4, 16, 1, 2048, 256, [2048] * 4)):
+        q, k, v, lens = _decode_case(rng, b, hq, hkv, s, d, bf, lengths)
+        got = da_mod.decode_attention(q, k, v, lens)
+        plain = ref.decode_attention(q, k, v, lens)
+        rep = hq // hkv
+        pos = torch.arange(s, device="cuda")
+        logits = torch.einsum("bhgd,bhsd->bhgs",
+                              q.double().view(b, hkv, rep, d),
+                              k.double()) * d ** -0.5
+        logits = logits.masked_fill(~(pos < lens[:, None, None, None]),
+                                    float("-inf"))
+        exact = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(logits, -1),
+                             v.double()).reshape(b, hq, d)
+        keep = lens > 0
+        err_k = float((got.double() - exact)[keep].abs().mean())
+        err_p = float((plain.double() - exact)[keep].abs().mean())
+        assert err_k <= 2.0 * err_p, (b, hq, d, err_k, err_p)
+
+
+def test_decode_attention_sass_has_hmma_and_ldgsts(card):
+    """The bf16 kernel issues tensor-core MMAs (HMMA) and both kernels
+    stage K and V by cp.async (LDGSTS)."""
+    from repro_torch.kernels import _build
+    text = _build.sass(da_mod.decode_attention_kernel())
+    assert "HMMA" in text and "LDGSTS" in text
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -725,13 +824,84 @@ def _bgemm_check(a, b, tiling, kernel, out_dtype=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_gemm_small_kernel_matches_plain(card, rng, b, m, k, n,
                                                  dtype):
-    """The pass's tilings (batch_block 32, more than one group fits);
-    a batch tail of 37 = 32 + 5 and a K of 70 over chunks of 32."""
+    """The pass's tilings (batch_block 32); a batch tail of 37 = 32 + 5
+    and a K of 70 over chunks of 32."""
     a = _randn(rng, (b, m, k), dtype=dtype)
     bb = _randn(rng, (b, k, n), k ** -0.5, dtype=dtype)
     tiling = bg.default_tiling(a.shape, bb.shape, a.element_size())
     assert tiling["vectorize_batch"] and tiling["batch_block"] == min(b, 32)
     _bgemm_check(a, bb, tiling, "batched_gemm_small")
+
+
+@pytest.mark.parametrize("b,m,k,n", [
+    (1, 32, 32, 32), (7, 16, 16, 16), (255, 32, 32, 32), (257, 32, 32, 32),
+    (257, 1, 5, 1), (7, 3, 1, 5), (5, 1, 70, 1000), (255, 16, 5, 16),
+    (33, 24, 70, 40), (1, 32, 1, 32), (2000, 32, 32, 32), (600, 24, 40, 40),
+    (3, 1, 8, 2048), (3, 2000, 8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_small_kernel_edges_match_plain(card, rng, b, m, k, n,
+                                                     dtype):
+    """Batch tails 1, 7, 255 and 257; 1 x 1 to 1 x 2048 and 2000 x 1
+    outputs; K of 1, 5, 40 and 70 (rows that are and are not 16-byte aligned, one K chunk or
+    several); 2000 and 600 matrices (blocks of several rounds)."""
+    a = _randn(rng, (b, m, k), dtype=dtype)
+    bb = _randn(rng, (b, k, n), k ** -0.5, dtype=dtype)
+    tiling = {"bm": 32, "bn": 32, "bk": 32, "batch_block": 32,
+              "vectorize_batch": True}
+    _bgemm_check(a, bb, tiling, "batched_gemm_small")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_small_kernel_reads_offset_and_broadcast_operands(
+        card, rng, dtype):
+    """An operand one element off 16-byte alignment (2 bytes in bf16) is
+    staged with element loads; B broadcast with batch stride 0; bf16 to an
+    f32 output."""
+    tiling = {"bm": 32, "bn": 32, "bk": 32, "batch_block": 32,
+              "vectorize_batch": True}
+    b, m, k, n = 300, 32, 32, 32
+    flat = _randn(rng, (b * m * k + 1,), dtype=dtype)
+    a = flat[1:].view(b, m, k)
+    assert a.data_ptr() % 16
+    bb = _randn(rng, (b, k, n), k ** -0.5, dtype=dtype)
+    _bgemm_check(a, bb, tiling, "batched_gemm_small")
+    b2 = _randn(rng, (k, n), k ** -0.5, dtype=dtype)
+    _bgemm_check(a, b2, tiling, "batched_gemm_small")
+    _bgemm_check(a, b2.expand(b, k, n), tiling, "batched_gemm_small")
+    if dtype == torch.bfloat16:
+        _bgemm_check(a, bb, tiling, "batched_gemm_small",
+                     out_dtype=torch.float32)
+
+
+def test_batched_gemm_small_plan_is_the_launchers(card):
+    """The wrapper's plan (micro-tile, threads a matrix, teams, matrices a
+    block, grid, threads, K chunk, stages, shared memory) is the CUDA
+    launcher's own."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    out = (ctypes.c_int * 9)()
+    for bk in (16, 32, 64):
+        lib = _build.load(bg.batched_gemm_kernel(True, 0, 0, bk))
+        for m, n in ((1, 1), (3, 5), (1, 1000), (16, 16), (24, 40), (32, 32),
+                     (2, 1024), (1, 2048), (45, 45), (2000, 1)):
+            for k in (0, 1, 5, 16, 40, 70, 300):
+                for batch, bb in ((1, 1), (7, 7), (256, 32), (16384, 32),
+                                  (2000, 128)):
+                    for item in (4, 2):
+                        assert lib.lapis_batched_gemm_small_plan(
+                            m, n, k, batch, bb, item, out) == 0
+                        p = bg.small_plan(m, n, k, batch, bb, item, bk)
+                        assert list(out) == [
+                            p["tm"], p["tpm"], p["teams"], p["per_block"],
+                            p["grid"], p["threads"], p["bk"], p["stages"],
+                            p["smem_bytes"]], (m, n, k, batch, bb, item, bk)
+
+
+def test_batched_gemm_small_sass_has_ldgsts(card):
+    """The small kernel stages its operands by cp.async (LDGSTS)."""
+    from repro_torch.kernels import _build
+    assert "LDGSTS" in _build.sass(bg.batched_gemm_kernel(True, 0, 0, 32))
 
 
 @pytest.mark.parametrize("b,m,k,n,tiling", [
