@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    all builds started together; fail unless the bf16 flash library's
    SASS (``cuobjdump -sass``) holds HGMMA (wgmma) and UTMALDG (TMA), the
    decode-attention library's bf16 kernels HMMA (``mma.sync``) and both
-   its kernels LDGSTS (``cp.async``), and every small batched-product
-   library's kernels LDGSTS;
+   its kernels LDGSTS (``cp.async``), every small batched-product
+   library's kernels LDGSTS, and, in both GEMM libraries (``matmul.cu``
+   and the tiled ``batched_gemm.cu``), every bf16 ``wgmma`` kernel HGMMA
+   and UTMALDG and every f32 FFMA kernel LDGSTS;
 2. hold each kernel against its plain torch version on the card at the
    shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
    block at its published widths; SpMV and SpMM on the sparse test
@@ -26,7 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    8960, silu, plus the residual) at T = 2048 tokens in f32 through
    ``pipeline.compile(..., target="cuda")``: 5 launches, no plain-version
    call, agreement with the plain block, and its time beside the same
-   module compiled for the library (``target="torch"``);
+   module compiled for the library (``target="torch"``); then the same
+   block in bf16 (3 gemms on the ``wgmma`` route, 2 nests); each gemm's
+   route and launch plan printed, and the three gemms timed in f32 and in
+   bf16 beside ``torch.matmul``;
 5. SpMV at the paper's Table 6.1 sizes: synthetic CSR matrices with the
    published rows, mean and max nonzeros per row of StocF-1465,
    PFlow_742, Elasticity3D and audikw_1 (Poisson row lengths, uniform
@@ -92,7 +97,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     16384 x 32^3, at the per-head QK^T of one 2048-token qwen2-1.5b
     sequence (12 x 2048 x 128 x 2048) and at qwen2-1.5b's up-projection
     on a 3-D activation ((8, 256, 1536) x (1536, 8960), B broadcast):
-    each through one launch of the small or the tiled kernel with no
+    each through one launch of the small or the tiled kernel (bf16 on the
+    ``wgmma`` route, f32 on FFMA; the route and plan printed) with no
     plain call, held to the plain version (f32 2e-4, bf16 2e-2) and
     timed beside its bound, the plain version and ``torch.matmul``; then
     one eager ``ops.matmul`` on card tensors and a 4-D batch;
@@ -101,14 +107,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     with TF32 off on both): the gemm, nest and softmax kernels launched
     and no plain call, the probabilities equal to rtol 1e-3 / atol 1e-6
     with the same top-1 classes and rows summing to 1, each target within
-    1e-3 of an f64 evaluation, both calls timed, and the §4.3 DualView
-    ablation (host weights: h2d + d2h of one call, lazy against eager);
+    1e-3 of an f64 evaluation, both calls timed, the §4.3 DualView
+    ablation (host weights: h2d + d2h of one call, lazy against eager),
+    and the fc gemm (8 x 512 x 1000, f32, split-K) alone beside
+    ``torch.matmul``, its plan printed and two calls bitwise equal;
 14. the MALA LDOS surrogate (91 -> 400 x 3 -> 201) on 8748 points, cuda
     against torch to 1e-4 of the output's scale, one gemm launch per
     layer, both timed;
-15. print the ``{"kernels": [...]}`` line (fourteen kernels: flash
-    attention's bf16 and f32 kernels are two rows), the card
-    line again, and as the last line ``{"ok": true, "device": {...}}``.
+15. print the ``{"kernels": [...]}`` line (sixteen kernels: flash
+    attention's bf16 and f32 kernels are two rows, and so are the bf16
+    ``wgmma`` and the FFMA routes of ``kk.gemm`` and of the tiled batched
+    product), the card line again, and as the last line ``{"ok": true,
+    "device": {...}}``.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a kernel's ``launches`` is the sum over the paths.
@@ -181,8 +191,9 @@ MALA_POINTS = 8748
 
 class KernelCount:
     """One kernel's launch count on a wrapper that routes to two kernels
-    (flash attention: bf16 to the wgmma kernel, f32 to the FFMA one);
-    the plain calls are the wrapper's."""
+    (flash attention, ``kk.gemm`` and the tiled batched product: bf16 to
+    a wgmma kernel, f32 to an FFMA one); the plain calls are the
+    wrapper's."""
 
     def __init__(self, fn, attr: str):
         self.fn, self.attr = fn, attr
@@ -305,7 +316,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
-    wrappers = {"matmul": mm.matmul,
+    wrappers = {"matmul": KernelCount(mm.matmul, "launches_ffma"),
+                "matmul_bf16": KernelCount(mm.matmul, "launches_wgmma"),
                 "block_map_region": generic.block_map_region,
                 "row_softmax": generic.row_softmax,
                 "spmv": spmv_mod.spmv, "spmm": spmm_mod.spmm_sparse,
@@ -317,7 +329,10 @@ def main() -> int:
                                                    "launches_ffma"),
                 "rwkv6_scan": rw.rwkv6_scan, "rglru_scan": rg.rglru_scan,
                 "batched_gemm_small": bgm.batched_gemm_small,
-                "batched_gemm_tiled": bgm.batched_gemm_tiled}
+                "batched_gemm_tiled": KernelCount(bgm.batched_gemm_tiled,
+                                                  "launches_ffma"),
+                "batched_gemm_tiled_bf16": KernelCount(
+                    bgm.batched_gemm_tiled, "launches_wgmma")}
     path_counts = {}     # path -> counts() read just after driving it
 
     def reset_counts() -> None:
@@ -394,6 +409,13 @@ def main() -> int:
     def on_card(arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
+    def plan_line(plan: dict) -> str:
+        """A GEMM launch plan (kernels/matmul.py::gemm_plan) in one line."""
+        return (f"route {plan['route']}, tile {plan['bm']}x{plan['bn']}x"
+                f"{plan['bk']}, {plan['threads']} threads, split "
+                f"{plan['split']}, grid {plan['grid']}, smem "
+                f"{plan['smem_bytes']} B")
+
     # ---------------------------------------------------------------- 1
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -419,6 +441,16 @@ def main() -> int:
     mod = pipeline.compile(block, spec, options=CompileOptions(target="cuda"))
     mod_lib = pipeline.compile(block, spec,
                                options=CompileOptions(target="torch"))
+    params16 = {k: v.bfloat16() for k, v in params.items()}
+
+    def block16(xv):
+        return gated_mlp_block(params16, xv, act=cfg.act)
+
+    spec16 = TensorSpec((T_TOKENS, d), "bfloat16")
+    mod16 = pipeline.compile(block16, spec16,
+                             options=CompileOptions(target="cuda"))
+    mod16_lib = pipeline.compile(block16, spec16,
+                                 options=CompileOptions(target="torch"))
     demo_fn, demo_specs, demo_example = pipeline._demo_mlp()
     demo_mod = pipeline.compile(demo_fn, *demo_specs,
                                 options=CompileOptions(target="cuda"))
@@ -456,11 +488,9 @@ def main() -> int:
     ragged = (127, 65, 129)
     gemv_mk = (1000, 777)
     sources = (kops.kernel_sources(mod.graph)
+               + kops.kernel_sources(mod16.graph)
                + kops.kernel_sources(demo_mod.graph)
-               + [mm.matmul_kernel(*mm.check_tiling(
-                   mm.default_tiling(*ragged, 4))),
-                  mm.matmul_kernel(*mm.check_tiling(
-                      mm.default_tiling(gemv_mk[0], 1, gemv_mk[1], 4)))]
+               + [mm.matmul_kernel()]
                + [ks for m in slice2_mods.values()
                   for ks in kops.kernel_sources(m.graph)]
                + [spmv_mod.spmv_kernel(), spmm_mod.spmm_kernel(),
@@ -501,6 +531,27 @@ def main() -> int:
         if not all(w in body or (w == "LDGSTS" and "UTMALDG" in body)
                    for w in need):
             fail(f"{n} SASS lacks {need}")
+    # the GEMM: in both libraries every bf16 kernel is wgmma fed by TMA and
+    # every f32 FFMA kernel stages by cp.async
+    for ks in (mm.matmul_kernel(), bgm.batched_gemm_kernel(False)):
+        fns = sass_functions(_build.sass(ks))
+        sm90 = {n: b for n, b in fns.items() if "lapis_gemm_sm90" in n}
+        f32 = {n: b for n, b in fns.items()
+               if "lapis_gemm_ffma_kernelIff" in n}
+        if not sm90 or not f32:
+            fail(f"{ks.name} SASS has no wgmma kernel or no f32 FFMA kernel")
+        for n, body in sm90.items():
+            if "HGMMA" not in body or "UTMALDG" not in body:
+                fail(f"{ks.name} {n} SASS lacks HGMMA or UTMALDG")
+        for n, body in f32.items():
+            if "LDGSTS" not in body:
+                fail(f"{ks.name} {n} SASS lacks LDGSTS")
+        print(f"{ks.name} GEMM SASS: {len(sm90)} wgmma kernels, "
+              f"{sum(b.count('HGMMA') for b in sm90.values())} HGMMA, "
+              f"{sum(b.count('UTMALDG') for b in sm90.values())} UTMALDG; "
+              f"{len(f32)} f32 FFMA kernels, "
+              f"{sum(b.count('LDGSTS') for b in f32.values())} LDGSTS",
+              flush=True)
     print(f"decode_attention.cu SASS: {len(checks) - len(small_fns)} "
           f"kernels, {sum(b.count('HMMA') for b in da_fns.values())} HMMA "
           f"(mma.sync), {sum(b.count('LDGSTS') for b in da_fns.values())} "
@@ -710,6 +761,33 @@ def main() -> int:
           f"{block_dev_ms:.4f} / {block_lib_dev_ms:.4f} ms; the 3 gemms are "
           f"{gemm_flops / 1e9:.1f} GFLOP", flush=True)
 
+    # the same block in bf16: its gemms on the wgmma route
+    print(f"phase 4: the same block in bf16 (T={T_TOKENS})", flush=True)
+    x16 = x.bfloat16()
+    reset_counts()
+    y16 = mod16(x16)
+    torch.cuda.synchronize()
+    c16 = path_counts["qwen2 block bf16"] = counts()
+    print(f"  launch_count {mod16.launch_count}; launches "
+          f"{ {n: l for n, (l, _) in c16.items() if l} }", flush=True)
+    if mod16.launch_count != 5 or c16["matmul_bf16"] != (3, 0) or \
+            c16["matmul"][0] != 0 or c16["block_map_region"] != (2, 0):
+        fail("the bf16 block did not run as 3 wgmma gemms + 2 block_map "
+             "with no plain-version call")
+    want16 = mod16_lib(x16)
+    torch.cuda.synchronize()
+    err16 = float((y16.float() - want16.float()).abs().max())
+    lim16 = 2e-2 * float(want16.float().abs().max())
+    print(f"  bf16 block vs the torch target's: max abs err {err16:.3e} "
+          f"(limit {lim16:.3e}, 2e-2 of max|y|)", flush=True)
+    if not (err16 <= lim16 and bool(torch.isfinite(y16).all())
+            and tuple(y16.shape) == (T_TOKENS, d)):
+        fail("the bf16 block disagrees with the torch target")
+    block16_dev_ms = time_ms(lambda: mod16(x16))
+    block16_lib_dev_ms = time_ms(lambda: mod16_lib(x16))
+    print(f"  bf16 block device time: cuda target {block16_dev_ms:.4f} ms, "
+          f"torch target {block16_lib_dev_ms:.4f} ms", flush=True)
+
     # per-kernel times at the main path's shapes
     rows = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                 "ops": 0.0, "bytes": 0.0, "peak": PEAK_FP32_PER_S}
@@ -722,23 +800,38 @@ def main() -> int:
         r["library_ms"] += t_l
         r["ops"] += ops_n
         r["bytes"] += bytes_n
+    rows["matmul_bf16"]["peak"] = PEAK_BF16_PER_S
+    rows["batched_gemm_tiled_bf16"]["peak"] = PEAK_BF16_PER_S
+    gemm_stats = []
     for op in block_gemms:
         (m, k), (_, n) = (o.type.shape for o in op.operands)
         a, b, tiling = block_ins[(m, k, n)]
-        t_k = time_ms(lambda: mm.matmul(a, b, tiling=tiling))
-        t_p = time_ms(lambda: ref.matmul(a, b))
-        t_l = time_ms(lambda: torch.matmul(a, b))
-        ops_n, bytes_n = 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
-        b_ms, b_by = bound(bytes_n, ops_n)
-        print(f"  matmul {m}x{k}x{n} tiling {tiling}: {t_k:.4f} ms "
-              f"(plain {t_p:.4f}, torch.matmul {t_l:.4f}, bound "
-              f"{b_ms:.4f} by {b_by})", flush=True)
-        r = rows["matmul"]
-        r["ms"] += t_k
-        r["plain_ms"] += t_p
-        r["library_ms"] += t_l
-        r["ops"] += ops_n
-        r["bytes"] += bytes_n
+        for name, dt in (("matmul", torch.float32),
+                         ("matmul_bf16", torch.bfloat16)):
+            a_, b_ = a.to(dt), b.to(dt)
+            plan = mm.plan_for(a_, b_)
+            if plan["route"] != ("ffma" if dt == torch.float32 else "wgmma"):
+                fail(f"matmul {m}x{k}x{n} {dt} planned {plan['route']}")
+            if dt == torch.bfloat16:
+                compare(name, mm.matmul(a_, b_, tiling=tiling),
+                        ref.matmul(a_, b_), 2e-2,
+                        f"matmul_bf16 block {m}x{k}x{n}", relative=True)
+            t_k = time_ms(lambda: mm.matmul(a_, b_, tiling=tiling))
+            t_p = time_ms(lambda: ref.matmul(a_, b_))
+            t_l = time_ms(lambda: torch.matmul(a_, b_))
+            item = a_.element_size()
+            ops_n = 2.0 * m * k * n
+            bytes_n = item * (m * k + k * n + m * n)
+            b_ms, b_by = bound(bytes_n, ops_n, rows[name]["peak"])
+            print(f"  {name} {m}x{k}x{n} (IR tiling {tiling}; "
+                  f"{plan_line(plan)}): {t_k:.4f} ms (plain {t_p:.4f}, "
+                  f"torch.matmul {t_l:.4f}, bound {b_ms:.4f} by {b_by}; "
+                  f"{ops_n / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+            add_row(name, t_k, t_p, t_l, ops_n, bytes_n)
+            gemm_stats.append({"m": m, "k": k, "n": n, "dtype": str(dt),
+                               "route": plan["route"], "ms": t_k,
+                               "plain_ms": t_p, "library_ms": t_l,
+                               "bound_ms": b_ms})
     for name, label, op, args, region, on_block in nest_ins:
         shape = op.results[0].type.shape
         n_el = float(np.prod(shape))
@@ -1635,12 +1728,18 @@ def main() -> int:
     for (sa, sb, dt), bmod in bmm_mods.items():
         (op,) = [o for o in bmod.graph.ops if o.opname == "kk.batched_gemm"]
         tiling = op.attrs["tiling"]
-        name = ("batched_gemm_small" if tiling["vectorize_batch"]
-                else "batched_gemm_tiled")
         tdt = getattr(torch, dt)
         a = randn(*sa).to(tdt)
         b = randn(*sb, scale=sb[-2] ** -0.5).to(tdt)
         label = f"{'x'.join(map(str, sa))} @ {'x'.join(map(str, sb))} {dt}"
+        plan = None if tiling["vectorize_batch"] else bgm.plan_for(a, b)
+        if plan is None:
+            name = "batched_gemm_small"
+        elif plan["route"] == ("wgmma" if dt == "bfloat16" else "ffma"):
+            name = ("batched_gemm_tiled_bf16" if dt == "bfloat16"
+                    else "batched_gemm_tiled")
+        else:
+            fail(f"batched {label} planned the {plan['route']} route")
         reset_counts()
         got = bmod(a, b)
         torch.cuda.synchronize()
@@ -1664,12 +1763,17 @@ def main() -> int:
         t_l = time_ms(lambda: torch.matmul(a, b))
         print(f"  {label}: {t_k:.4f} ms (plain {t_p:.4f}, torch.matmul "
               f"{t_l:.4f}, bound {b_ms:.4f} by {b_by}; "
-              f"{ops_n / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+              f"{ops_n / t_k / 1e9:.1f} TFLOP/s)"
+              + ("" if plan is None else f"; {plan_line(plan)}"), flush=True)
         batched_stats.append({"a": sa, "b": sb, "dtype": dt, "kernel": name,
                               "tiling": tiling, "ms": t_k, "plain_ms": t_p,
                               "library_ms": t_l, "bound_ms": b_ms,
-                              "bound_by": b_by, "max_abs_err": err})
-        if dt == "float32":     # the kernels line sums the f32 cases
+                              "bound_by": b_by, "max_abs_err": err,
+                              "route": None if plan is None
+                              else plan["route"]})
+        # the kernels line: the small kernel's f32 cases, the tiled
+        # products' f32 (FFMA) and bf16 (wgmma) cases each in their row
+        if dt == "float32" or name == "batched_gemm_tiled_bf16":
             add_row(name, t_k, t_p, t_l, ops_n, bytes_n)
         del a, b, got
 
@@ -1797,11 +1901,36 @@ def main() -> int:
               f"{h2d + d2h}; later calls {wall_t:.2f} ms (synchronized "
               "wall)", flush=True)
         del m_ab
+    # the fc gemm alone (8 x 512 x 1000, f32): split-K, the same bits on
+    # every call
+    (fc_op,) = [op for op in rn_mod.graph.ops if op.opname == "kk.gemm"]
+    (fm, fk), (_, fn) = (o.type.shape for o in fc_op.operands)
+    fa_ = randn(fm, fk)
+    fb_ = rn_w["fc_w"]
+    fc_plan = mm.plan_for(fa_, fb_)
+    fc_out = mm.matmul(fa_, fb_, tiling=fc_op.attrs["tiling"])
+    fc_err = compare("matmul", fc_out, ref.matmul(fa_, fb_), 1e-5,
+                     f"matmul ResNet18 fc {fm}x{fk}x{fn}")
+    stable = all(torch.equal(mm.matmul(fa_, fb_), fc_out) for _ in range(3))
+    if fc_plan["split"] < 2 or not stable:
+        fail(f"the fc gemm: split {fc_plan['split']}, bitwise stable "
+             f"{stable}")
+    fc_ms = time_ms(lambda: mm.matmul(fa_, fb_))
+    fc_lib_ms = time_ms(lambda: torch.matmul(fa_, fb_))
+    fc_bound, fc_by = bound(4.0 * (fm * fk + fk * fn + fm * fn),
+                            2.0 * fm * fk * fn)
+    print(f"  fc gemm {fm}x{fk}x{fn} f32 ({plan_line(fc_plan)}): "
+          f"{fc_ms:.4f} ms (torch.matmul {fc_lib_ms:.4f}, bound "
+          f"{fc_bound:.6f} by {fc_by}); bitwise equal over calls: {stable}",
+          flush=True)
     resnet_stats = {"ms": rn_ms, "library_ms": rn_lib_ms,
                     "device_busy_ms": rn_busy, "launches": launched,
                     "max_abs_err": err, "max_rel_err": rel_pair,
                     "rel_err_vs_f64": {"cuda": rel_cuda, "torch": rel_torch},
-                    "dualview": ablation}
+                    "dualview": ablation,
+                    "fc_gemm": {"ms": fc_ms, "library_ms": fc_lib_ms,
+                                "bound_ms": fc_bound, "split":
+                                fc_plan["split"], "max_abs_err": fc_err}}
     del rn_mod, rn_lib, rn_host_w, probs, probs_lib, xr
     torch.cuda.empty_cache()
 
@@ -1847,8 +1976,10 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 15
     sources_of = {
-        "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+        "matmul": ("src/repro_torch/kernels/csrc/gemm_tile.cuh",
                    "src/repro/kernels/matmul.py:57"),
+        "matmul_bf16": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh",
+                        "src/repro/kernels/matmul.py:57"),
         "block_map_region": ("src/repro_torch/kernels/csrc/block_map.cuh",
                              "src/repro/kernels/generic.py:50"),
         "row_softmax": ("src/repro_torch/kernels/csrc/row_softmax.cu",
@@ -1878,7 +2009,10 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/batched_gemm.cu",
             "src/repro/kernels/batched_gemm.py:73"),
         "batched_gemm_tiled": (
-            "src/repro_torch/kernels/csrc/batched_gemm.cu",
+            "src/repro_torch/kernels/csrc/gemm_tile.cuh",
+            "src/repro/kernels/batched_gemm.py:94"),
+        "batched_gemm_tiled_bf16": (
+            "src/repro_torch/kernels/csrc/gemm_sm90.cuh",
             "src/repro/kernels/batched_gemm.py:94"),
     }
     kernels = []
@@ -1897,6 +2031,9 @@ def main() -> int:
     print(json.dumps({"block_ms": block_ms, "block_library_ms": block_lib_ms,
                       "block_device_ms": block_dev_ms,
                       "block_library_device_ms": block_lib_dev_ms,
+                      "block_bf16_device_ms": block16_dev_ms,
+                      "block_bf16_library_device_ms": block16_lib_dev_ms,
+                      "block_gemms": gemm_stats,
                       "block_launches": mod.launch_count,
                       "demo_launches": demo_launches,
                       "build_s": build_s, "tokens": T_TOKENS,

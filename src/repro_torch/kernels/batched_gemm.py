@@ -14,13 +14,19 @@ The map_parallelism pass picks one of two kernels of
   bring the grid to two blocks per SM (:func:`small_plan`), computes a
   few at once from a two-stage ``cp.async`` ring in shared memory, each
   thread a 4 × 4 register micro-tile (the reference's ``_small_kernel``);
-* :func:`batched_gemm_tiled` — larger matrices: the (bm, bn, bk) tile
-  loop of ``kk.gemm`` with the matrix on the grid's third axis (the
-  reference's ``_tiled_kernel``).
+* :func:`batched_gemm_tiled` — larger matrices: the products of
+  ``kk.gemm`` (``csrc/gemm.cuh``: bf16 that TMA can address on ``wgmma``,
+  the rest on FFMA, a launch count per route as :func:`matmul.matmul`
+  has), the matrix on the grid (FFMA) or in the walked tile index
+  (``wgmma``); a B shared by a packed batch of A folds into one product
+  of batch · M rows (the reference's ``_tiled_kernel``).
 
-Each library is compiled once per tiling (``-DLAPIS_SMALL``/``-DLAPIS_BK``
-or ``-DLAPIS_BM/BN/BK``); a tiling the kernel cannot run raises.  On CPU
-tensors the wrappers run the plain version (``ref.batched_gemm``).
+The small library is compiled once per K chunk (``-DLAPIS_SMALL``/
+``-DLAPIS_BK``), the tiled one once with every tile: its launch plan
+(``matmul.gemm_plan``) picks the tile from the extents, and the IR's
+(bm, bn, bk) is only checked, as for ``kk.gemm``.  A tiling the kernels
+cannot run raises.  On CPU tensors the wrappers run the plain version
+(``ref.batched_gemm``).
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ SMALL_TARGET_BLOCKS = 2 * 132   # two blocks per H100 SM
 _FNS = {(torch.float32, torch.float32): "lapis_batched_gemm_f32",
         (torch.bfloat16, torch.bfloat16): "lapis_batched_gemm_bf16",
         (torch.bfloat16, torch.float32): "lapis_batched_gemm_bf16_f32out"}
-_LAUNCHERS: dict = {}   # ((small, bm, bn, bk), in dtype, out dtype) -> fn
+_LAUNCHERS: dict = {}   # ((small, bk), in dtype, out dtype) -> fn
 
 
 def _is_small(tiling: dict, m: int, n: int) -> bool:
@@ -153,12 +159,10 @@ def check_tiling(tiling: dict, m: int, n: int) -> tuple:
     return True, 0, 0, bk, bb
 
 
-def batched_gemm_kernel(small: bool, bm: int, bn: int,
-                        bk: int) -> _build.KernelSource:
-    """The build record of ``csrc/batched_gemm.cu`` for one kernel at one
-    tiling."""
-    defines = ((("LAPIS_SMALL", 1), ("LAPIS_BK", bk)) if small else
-               (("LAPIS_BM", bm), ("LAPIS_BN", bn), ("LAPIS_BK", bk)))
+def batched_gemm_kernel(small: bool, bk: int = 0) -> _build.KernelSource:
+    """The build record of ``csrc/batched_gemm.cu``: the small kernel at K
+    chunk ``bk``, or the tiled products (every tile, no defines)."""
+    defines = (("LAPIS_SMALL", 1), ("LAPIS_BK", bk)) if small else ()
     return _build.KernelSource("batched_gemm", _build.csrc("batched_gemm.cu"),
                                defines)
 
@@ -174,9 +178,9 @@ def _launcher(key: tuple, in_dtype, out_dtype):
                             f"bfloat16 → bfloat16 or bfloat16 → float32, "
                             f"not {in_dtype} → {out_dtype}")
         fn = getattr(_build.load(batched_gemm_kernel(*key)), name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LAUNCHERS[(key, in_dtype, out_dtype)] = fn
     return fn
@@ -191,6 +195,22 @@ def _batched(x: torch.Tensor, batch: tuple, rows: int, cols: int) -> tuple:
     if (cols > 1 and x3.stride(2) != 1) or (rows > 1 and x3.stride(1) != cols):
         x3 = x3.contiguous()
     return x3, (x3.stride(0) if x3.shape[0] > 1 else 0)
+
+
+def _plan(a3: torch.Tensor, b3: torch.Tensor, sa: int, sb: int, m: int,
+          n: int, k: int, nb: int) -> dict:
+    return _mm.gemm_plan(m, n, k, nb, a3.dtype, _mm.aligned(a3, b3, sa, sb),
+                         fold=nb > 1 and sb == 0 and sa == m * k)
+
+
+def plan_for(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The plan :func:`batched_gemm_tiled` launches for these operands."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = tuple(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
+    a3, sa = _batched(a, batch, m, k)
+    b3, sb = _batched(b, batch, k, n)
+    return _plan(a3, b3, sa, sb, m, n, k, math.prod(batch))
 
 
 def _run(wrapper, small: bool, a: torch.Tensor, b: torch.Tensor,
@@ -211,24 +231,28 @@ def _run(wrapper, small: bool, a: torch.Tensor, b: torch.Tensor,
     nb = math.prod(batch)
     if max(m, n, k, nb) >= 2**31:
         raise ValueError("batched_gemm: extents must fit 32-bit ints")
-    is_small, bm, bn, bk, bb = check_tiling(tiling, m, n)
+    is_small, _, _, bk, bb = check_tiling(tiling, m, n)
     if is_small != small:
         raise ValueError(f"batched_gemm: tiling {tiling} is for the "
                          f"{'small' if is_small else 'tiled'} kernel")
-    fn = _launcher((small, bm, bn, bk), a.dtype, out_dtype)
+    fn = _launcher((small, bk if small else 0), a.dtype, out_dtype)
     c = torch.empty(batch + (m, n), dtype=out_dtype, device=a.device)
     if c.numel() == 0:
         return c
-    if not small and -(-m // bm) > 65535:
-        raise ValueError(f"batched_gemm: {m} rows need more than 65535 row "
-                         f"blocks of {bm}")
     a3, sa = _batched(a, batch, m, k)
     b3, sb = _batched(b, batch, k, n)
-    _build.check(fn(a3.data_ptr(), b3.data_ptr(), c.data_ptr(), nb, m, n, k,
-                    sa, sb, bb,
+    plan, ws, ws_ptr, ws_bytes = None, None, None, 0
+    if not small:
+        plan = _plan(a3, b3, sa, sb, m, n, k, nb)
+        ws, ws_ptr, ws_bytes = _mm.workspace(plan, a.device)
+    _build.check(fn(a3.data_ptr(), b3.data_ptr(), c.data_ptr(), ws_ptr,
+                    ws_bytes, nb, m, n, k, sa, sb, bb,
                     torch.cuda.current_stream(a.device).cuda_stream),
                  "batched_gemm")
-    wrapper.launches += 1
+    if small:
+        wrapper.launches += 1
+    else:
+        _mm.count_launch(wrapper, plan)
     return c
 
 
@@ -261,3 +285,5 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor, *,
 for _w in (batched_gemm_small, batched_gemm_tiled):
     _w.launches = 0
     _w.plain_calls = 0
+batched_gemm_tiled.launches_wgmma = 0   # bf16 on the tensor cores
+batched_gemm_tiled.launches_ffma = 0    # f32 and unaligned bf16

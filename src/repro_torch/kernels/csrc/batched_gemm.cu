@@ -8,7 +8,7 @@
 //   VMEM.  Built with -DLAPIS_SMALL=1 -DLAPIS_BK=<depth>.
 // * _tiled_kernel (pallas_call at batched_gemm.py:94): per matrix a grid
 //   over (M/bm, N/bn) tiles and a sequential K axis accumulating in a
-//   VMEM scratch tile.  Built with -DLAPIS_BM/BN/BK.
+//   VMEM scratch tile.  Built without defines: every tile of gemm.cuh.
 //
 // The reference pads the batch to a multiple of batch_block and M, N, K
 // to block multiples, and materialises a broadcast B once per batch
@@ -49,24 +49,28 @@
 // * f32 stays FFMA (the f32 bar is 1e-5, which rules out TF32); bf16 is
 //   converted to f32 in registers and takes the same FFMA loop.
 //
-// Tiled: one block per BM×BN tile of one matrix, the tile loop of
-// gemm_tile.cuh (shared with kk.gemm); the matrix is the grid's z axis,
-// looping past 65,535.  At the large shapes the FP32 rate bounds it.
+// Tiled (built without -DLAPIS_SMALL): the products of gemm.cuh, shared
+// with kk.gemm — bf16 that TMA can address on wgmma (gemm_sm90.cuh), the
+// rest on FFMA (gemm_tile.cuh) — with the matrix (and the K range, where
+// the plan splits K) on the grid's third axis, looping past 65,535; a B
+// shared by a packed batch of A folds into one product of batch·M rows.
+// One library holds every tile: the plan picks it from the extents, and
+// the IR's (bm, bn, bk) is only checked (kernels/batched_gemm.py).
 #include <cuda_runtime.h>
 
-#include "gemm_tile.cuh"
+#ifdef LAPIS_SMALL
 
 #ifndef LAPIS_BK
-#error "build with -DLAPIS_SMALL=1 -DLAPIS_BK=<depth>, or -DLAPIS_BM/BN/BK"
+#error "build the small kernel with -DLAPIS_SMALL=1 -DLAPIS_BK=<depth>"
 #endif
-
-constexpr int BK = LAPIS_BK;
-
-#ifdef LAPIS_SMALL
 
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "lapis_cuda.cuh"
+
+constexpr int BK = LAPIS_BK;
 
 constexpr int SMALL_TN = 4;              // output columns a thread owns
 constexpr int SMALL_MAX_OUTPUTS = 2048;  // m·n the kernel takes
@@ -301,9 +305,12 @@ static bool aligned16(const void* ptr, long long stride, int itemsize) {
 }
 
 template <typename TI, typename TO>
-static int lapis_bgemm_launch(const void* A, const void* B, void* C,
-                              int batch, int M, int N, int K, long long sA,
-                              long long sB, int batch_block, void* stream) {
+static int lapis_bgemm_launch(const void* A, const void* B, void* C, void* ws,
+                              long long ws_bytes, int batch, int M, int N,
+                              int K, long long sA, long long sB,
+                              int batch_block, void* stream) {
+  (void)ws;
+  (void)ws_bytes;
   if (batch < 1 || batch_block < 1 || M < 1 || N < 1 || K < 0 ||
       (long long)M * N > SMALL_MAX_OUTPUTS)
     return (int)cudaErrorInvalidValue;
@@ -343,52 +350,35 @@ extern "C" int lapis_batched_gemm_small_plan(int m, int n, int k, int batch,
   return 0;
 }
 
-#else  // the tiled kernel
+#else  // the tiled products
 
-using Tile = LapisGemmTile<LAPIS_BM, LAPIS_BN, LAPIS_BK>;
-constexpr int MAX_GRID_Z = 65535;
-
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(Tile::THREADS)
-lapis_bgemm_tiled(const TI* __restrict__ A, const TI* __restrict__ B,
-                  TO* __restrict__ C, int batch, int M, int N, int K,
-                  long long sA, long long sB) {
-  extern __shared__ float smem[];
-  const long long sC = (long long)M * N;
-  for (int b = blockIdx.z; b < batch; b += gridDim.z)
-    Tile::run(A + b * sA, B + b * sB, C + b * sC, M, N, K,
-              blockIdx.y * LAPIS_BM, blockIdx.x * LAPIS_BN, smem);
-}
+#include "gemm.cuh"
 
 template <typename TI, typename TO>
-static int lapis_bgemm_launch(const void* A, const void* B, void* C,
-                              int batch, int M, int N, int K, long long sA,
-                              long long sB, int batch_block, void* stream) {
+static int lapis_bgemm_launch(const void* A, const void* B, void* C, void* ws,
+                              long long ws_bytes, int batch, int M, int N,
+                              int K, long long sA, long long sB,
+                              int batch_block, void* stream) {
   (void)batch_block;
-  auto kernel = lapis_bgemm_tiled<TI, TO>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tile::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + LAPIS_BN - 1) / LAPIS_BN, (M + LAPIS_BM - 1) / LAPIS_BM,
-                  batch < MAX_GRID_Z ? batch : MAX_GRID_Z);
-  kernel<<<grid, Tile::THREADS, Tile::SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const TI*)A, (const TI*)B, (TO*)C, batch, M, N, K, sA, sB);
-  return (int)cudaGetLastError();
+  return gemm::run<TI, TO>(A, B, C, ws, ws_bytes, batch, M, N, K, sA, sB,
+                           (cudaStream_t)stream);
 }
 
 #endif
 
 // A, B, C: device pointers; sA, sB: the batch strides of A and B in
 // elements (0 for a broadcast operand); batch_block: the most matrices a
-// small-kernel block owns (the tiled kernel ignores it).  Returns the
-// cudaError_t of the launch.
+// small-kernel block owns (the tiled products ignore it); ws, ws_bytes:
+// the tiled plan's f32 split-K workspace (null and 0 where it does not
+// split K; the small kernel takes none).  Returns the cudaError_t of the
+// launches.
 #define LAPIS_BGEMM_ENTRY(NAME, TI, TO)                                      \
-  extern "C" int NAME(const void* A, const void* B, void* C, int batch,      \
-                      int M, int N, int K, long long sA, long long sB,       \
-                      int batch_block, void* stream) {                       \
-    return lapis_bgemm_launch<TI, TO>(A, B, C, batch, M, N, K, sA, sB,       \
-                                      batch_block, stream);                  \
+  extern "C" int NAME(const void* A, const void* B, void* C, void* ws,       \
+                      long long ws_bytes, int batch, int M, int N, int K,    \
+                      long long sA, long long sB, int batch_block,           \
+                      void* stream) {                                        \
+    return lapis_bgemm_launch<TI, TO>(A, B, C, ws, ws_bytes, batch, M, N, K, \
+                                      sA, sB, batch_block, stream);          \
   }
 
 LAPIS_BGEMM_ENTRY(lapis_batched_gemm_f32, float, float)

@@ -275,22 +275,16 @@ def kernel_sources(graph) -> list:
     """The kernel libraries a graph lowered for the ``cuda`` target
     launches, so a caller can build them together (``_build.build_all``)
     before the first call instead of one nvcc at a time."""
-    from repro_torch.core.ir import KOKKOS_PARALLEL_OPS, dtype_itemsize
+    from repro_torch.core.ir import KOKKOS_PARALLEL_OPS
     from repro_torch.kernels import generic
     out = []
     for op in graph.ops:
-        if op.opname == "kk.gemm":
-            out.append(_mm.matmul_kernel(
-                *_mm.check_tiling(op.attrs["tiling"])))
+        if op.opname in ("kk.gemm", "kk.gemv"):
+            out.append(_mm.matmul_kernel())
         elif op.opname == "kk.batched_gemm":
             (m, _), (_, n) = (o.type.shape[-2:] for o in op.operands)
-            small, bm, bn, bk, _ = _bg.check_tiling(op.attrs["tiling"], m, n)
-            out.append(_bg.batched_gemm_kernel(small, bm, bn, bk))
-        elif op.opname == "kk.gemv":
-            a = op.operands[0].type
-            tiling = _mm.default_tiling(a.shape[0], 1, a.shape[1],
-                                        dtype_itemsize(a.dtype))
-            out.append(_mm.matmul_kernel(*_mm.check_tiling(tiling)))
+            small, _, _, bk, _ = _bg.check_tiling(op.attrs["tiling"], m, n)
+            out.append(_bg.batched_gemm_kernel(small, bk if small else 0))
         elif op.opname == "kk.spmv":
             out.append(_sp.spmv_kernel())
         elif op.opname == "kk.spmm":

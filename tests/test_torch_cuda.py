@@ -6,6 +6,8 @@ and skips where torch sees no card; run them on a machine with one:
 
 No JAX here: the machine with the card has none.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -882,7 +884,7 @@ def test_batched_gemm_small_plan_is_the_launchers(card):
     from repro_torch.kernels import _build
     out = (ctypes.c_int * 9)()
     for bk in (16, 32, 64):
-        lib = _build.load(bg.batched_gemm_kernel(True, 0, 0, bk))
+        lib = _build.load(bg.batched_gemm_kernel(True, bk))
         for m, n in ((1, 1), (3, 5), (1, 1000), (16, 16), (24, 40), (32, 32),
                      (2, 1024), (1, 2048), (45, 45), (2000, 1)):
             for k in (0, 1, 5, 16, 40, 70, 300):
@@ -901,7 +903,7 @@ def test_batched_gemm_small_plan_is_the_launchers(card):
 def test_batched_gemm_small_sass_has_ldgsts(card):
     """The small kernel stages its operands by cp.async (LDGSTS)."""
     from repro_torch.kernels import _build
-    assert "LDGSTS" in _build.sass(bg.batched_gemm_kernel(True, 0, 0, 32))
+    assert "LDGSTS" in _build.sass(bg.batched_gemm_kernel(True, 32))
 
 
 @pytest.mark.parametrize("b,m,k,n,tiling", [
@@ -976,6 +978,219 @@ def test_compiled_batched_matmul_runs_through_the_kernels_only(card, rng,
                            TensorSpec(sb, "float32"),
                            options=CompileOptions(target="torch"))
     torch.testing.assert_close(got, lib(a, b), rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the shared GEMM (kk.gemm, kk.gemv, the tiled kk.batched_gemm): bf16 on
+# wgmma fed by TMA, f32 and what TMA cannot address on FFMA, split-K
+# ---------------------------------------------------------------------------
+
+def _routes(w):
+    return (w.launches, w.launches_wgmma, w.launches_ffma, w.plain_calls)
+
+
+def _gemm_check(a, b, out_dtype=None):
+    """One ``matmul`` launch, on the route its plan names, held to the
+    plain version (f32 1e-5, bf16 2e-2); returns (plan, output)."""
+    m, k = a.shape
+    n = b.shape[1]
+    plan = mm.gemm_plan(m, n, k, 1, a.dtype,
+                        mm.aligned(a.contiguous(), b.contiguous()))
+    before = _routes(mm.matmul)
+    got = mm.matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    wgmma = plan["route"] == "wgmma"
+    assert _routes(mm.matmul) == (before[0] + 1, before[1] + wgmma,
+                                  before[2] + (not wgmma), before[3])
+    assert got.dtype == (out_dtype or a.dtype)
+    tol = 1e-5 if a.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), torch.matmul(a.float(), b.float()),
+                               rtol=tol, atol=tol)
+    return plan, got
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (130, 136, 72), (257, 264, 200),
+                                   (129, 64, 136), (300, 512, 1000),
+                                   (64, 1000, 64), (1000, 40, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_routes_match_plain_over_ragged_edges(card, rng, m, k, n,
+                                                   dtype):
+    """M, N and K off every tile edge; bf16 (K, N multiples of 8) on
+    wgmma, f32 on FFMA."""
+    a = _randn(rng, (m, k), dtype=dtype)
+    b = _randn(rng, (k, n), k ** -0.5, dtype=dtype)
+    plan, _ = _gemm_check(a, b)
+    assert plan["route"] == ("wgmma" if dtype == torch.bfloat16 else "ffma")
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 91, 400), (300, 400, 201),
+                                   (77, 91, 201), (8748, 91, 400)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_misaligned_k_and_n_take_ffma(card, rng, m, k, n, dtype):
+    """MALA's K = 91 and N = 201: rows off 16 bytes, staged by 4-byte
+    copies (f32) or converted on load (bf16), never padded."""
+    a = _randn(rng, (m, k), dtype=dtype)
+    b = _randn(rng, (k, n), k ** -0.5, dtype=dtype)
+    plan, _ = _gemm_check(a, b)
+    assert plan["route"] == "ffma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemv_takes_the_ffma_route(card, rng, dtype):
+    """kk.gemv's one column (N = 1) on FFMA, K split to fill the card."""
+    a = _randn(rng, (1000, 777), dtype=dtype)
+    x = _randn(rng, (777,), 777 ** -0.5, dtype=dtype)
+    before = _routes(mm.matmul)
+    got = kops.gemv_cuda(a, x)
+    torch.cuda.synchronize()
+    assert _routes(mm.matmul) == (before[0] + 1, before[1], before[2] + 1,
+                                  before[3])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), a.float() @ x.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("sa,sb", [((2048, 1536), (1536, 8960)),
+                                   ((12, 2048, 128), (12, 128, 2048))])
+def test_bf16_wgmma_error_against_f64_is_the_plain_versions(card, rng, sa,
+                                                            sb):
+    """At the MLP up-projection and the per-head QKᵀ, the wgmma route's
+    mean |error| against an f64 evaluation of the same bf16 inputs is
+    within 1.5× the plain version's (both round C to bf16 once)."""
+    a = _randn(rng, sa, dtype=torch.bfloat16)
+    b = _randn(rng, sb, sb[-2] ** -0.5, dtype=torch.bfloat16)
+    if len(sa) == 2:
+        before = mm.matmul.launches_wgmma
+        got, plain = mm.matmul(a, b), ref.matmul(a, b)
+        assert mm.matmul.launches_wgmma == before + 1
+    else:
+        before = bg.batched_gemm_tiled.launches_wgmma
+        got = bg.batched_gemm(a, b)
+        plain = ref.batched_gemm(a, b)
+        assert bg.batched_gemm_tiled.launches_wgmma == before + 1
+    want = torch.matmul(a.double(), b.double())
+    err = float((got.double() - want).abs().mean())
+    err_plain = float((plain.double() - want).abs().mean())
+    assert err <= 1.5 * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("shape,dtype", [((8, 512, 1000), torch.float32),
+                                         ((8, 512, 1000), torch.bfloat16),
+                                         ((1000, 777, 1), torch.float32)])
+def test_split_k_is_bitwise_stable(card, rng, shape, dtype):
+    """ResNet18's fc and a gemv: K split over several blocks, the partial
+    products summed in a fixed order: two calls give the same bits."""
+    m, k, n = shape
+    plan = mm.gemm_plan(m, n, k, 1, dtype, True)
+    assert plan["split"] > 1
+    a = _randn(rng, (m, k), dtype=dtype)
+    b = _randn(rng, (k, n), k ** -0.5, dtype=dtype)
+    _, first = _gemm_check(a, b)
+    for _ in range(3):
+        assert torch.equal(mm.matmul(a, b), first)
+
+
+def test_gemm_bf16_to_f32_on_both_routes(card, rng):
+    for k, n in ((256, 200), (91, 201)):
+        a = _randn(rng, (150, k), dtype=torch.bfloat16)
+        b = _randn(rng, (k, n), k ** -0.5, dtype=torch.bfloat16)
+        plan, _ = _gemm_check(a, b, out_dtype=torch.float32)
+        assert plan["route"] == ("wgmma" if k == 256 else "ffma")
+        got = bg.batched_gemm(a[None].expand(3, -1, -1), b,
+                              out_dtype=torch.float32)
+        torch.testing.assert_close(got, torch.matmul(a.float(), b.float())
+                                   .expand(3, -1, -1), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_batched_routes_read_broadcast_strided_and_offset_operands(
+        card, rng, dtype):
+    """B broadcast over a packed A (folded into one product), A broadcast
+    over B's batch, a strided batch of A beside a broadcast B (not
+    folded), and an operand one element off 16-byte alignment (bf16: the
+    FFMA route)."""
+    tiled = {"bm": 64, "bn": 64, "bk": 32, "vectorize_batch": False}
+    bf16 = dtype == torch.bfloat16
+    cases = [(_randn(rng, (4, 96, 64), dtype=dtype),
+              _randn(rng, (64, 200), 0.125, dtype=dtype), bf16),
+             (_randn(rng, (40, 24), dtype=dtype),
+              _randn(rng, (6, 24, 40), 0.2, dtype=dtype), bf16),
+             (_randn(rng, (8, 72, 64), dtype=dtype)[::2],
+              _randn(rng, (64, 48), 0.125, dtype=dtype), bf16)]
+    flat = _randn(rng, (5 * 72 * 64 + 1,), dtype=dtype)
+    cases.append((flat[1:].view(5, 72, 64),
+                  _randn(rng, (5, 64, 48), 0.125, dtype=dtype), False))
+    for a, b, on_wgmma in cases:
+        before = _routes(bg.batched_gemm_tiled)
+        got = bg.batched_gemm(a, b, tiling=tiled)
+        torch.cuda.synchronize()
+        after = _routes(bg.batched_gemm_tiled)
+        assert after == (before[0] + 1, before[1] + on_wgmma,
+                         before[2] + (not on_wgmma), before[3])
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(),
+                                   torch.matmul(a.float(), b.float()),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_batch_beyond_the_grid_limit(card, rng, dtype):
+    """70,000 matrices: blocks walk the batch past 65,535 grid slices
+    (the wgmma ring's barrier phases carry across them)."""
+    tiled = {"bm": 8, "bn": 8, "bk": 8, "vectorize_batch": False}
+    a = _randn(rng, (70000, 8, 16), dtype=dtype)
+    b = _randn(rng, (70000, 16, 8), 0.25, dtype=dtype)
+    got = bg.batched_gemm(a, b, tiling=tiled)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), torch.matmul(a.float(), b.float()),
+                               rtol=tol, atol=tol)
+
+
+def test_gemm_plan_is_the_launchers(card):
+    """lapis_gemm_plan in both libraries is the Python twin's plan."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    out = (ctypes.c_int * 14)()
+    libs = [_build.load(mm.matmul_kernel()),
+            _build.load(bg.batched_gemm_kernel(False))]
+    for lib in libs:
+        for m, n, k in itertools.product((1, 8, 91, 128, 2048, 8748),
+                                         (1, 8, 201, 1000, 8960),
+                                         (0, 8, 91, 512, 1536, 8960)):
+            for batch, fold in ((1, False), (12, False), (8, True),
+                                (70000, False)):
+                for dtype, item in ((torch.float32, 4), (torch.bfloat16, 2)):
+                    for al in (True, False):
+                        assert lib.lapis_gemm_plan(m, n, k, batch, item,
+                                                   int(al), int(fold),
+                                                   out) == 0
+                        p = mm.gemm_plan(m, n, k, batch, dtype, al, fold)
+                        assert list(out) == [
+                            int(p["route"] == "wgmma"), p["bm"], p["bn"],
+                            p["bk"], p["threads"], p["stages"], p["m"],
+                            p["batch"], p["split"], p["k_chunk"],
+                            *p["grid"], p["smem_bytes"]], \
+                            (m, n, k, batch, fold, item, al)
+
+
+def test_gemm_sass_has_wgmma_tma_and_cp_async(card):
+    """Both libraries: the bf16 kernels issue HGMMA fed by UTMALDG, the
+    f32 FFMA kernels stage by LDGSTS."""
+    import re
+
+    from repro_torch.kernels import _build
+    for ks in (mm.matmul_kernel(), bg.batched_gemm_kernel(False)):
+        fns = {}
+        for part in re.split(r"(?=Function : )", _build.sass(ks))[1:]:
+            name = part.split()[2]
+            fns[name] = part
+        sm90 = [b for n, b in fns.items() if "lapis_gemm_sm90" in n]
+        f32 = [b for n, b in fns.items()
+               if re.search(r"lapis_gemm_ffma_kernelIff", n)]
+        assert sm90 and f32
+        assert all("HGMMA" in b and "UTMALDG" in b for b in sm90)
+        assert all("LDGSTS" in b for b in f32)
 
 
 def test_reduced_resnet18_and_mala_cuda_match_torch(card):
