@@ -13,12 +13,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    its kernels LDGSTS (``cp.async``), every small batched-product
    library's kernels LDGSTS, and, in both GEMM libraries (``matmul.cu``
    and the tiled ``batched_gemm.cu``), every bf16 ``wgmma`` kernel HGMMA
-   and UTMALDG and every f32 FFMA kernel LDGSTS;
+   and UTMALDG and every f32 FFMA kernel LDGSTS, and every register-path
+   kernel of RMSNorm and the row softmax (``rmsnorm.cu``,
+   ``row_softmax.cu``: f32 and bf16, 1-8 vectors a thread) 16-byte loads
+   (LDG.E.128) and no local memory (LDL / STL);
 2. hold each kernel against its plain torch version on the card at the
    shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
    block at its published widths; SpMV and SpMM on the sparse test
    matrices, one with trailing empty rows; the paged gather on the demo
-   shapes), with stated tolerances — the gather exactly;
+   shapes; ResNet18's (8, 1000) softmax), with stated tolerances — the
+   gather exactly; the row softmax timed at the mlp demo's (8, 10) and
+   ResNet18's (8, 1000) beside ``torch.softmax``, its launch plan (the
+   C plan held to its Python twin) printed;
 3. run ``repro_torch.core.pipeline.main(["--demo", d, "--target",
    "cuda"])`` for mlp (sum 8.0, 4 launches), spmv (spmv + the relu
    nest), paged (the gather) and paged_swap (no hand kernel: the copies
@@ -45,7 +51,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``page_gather`` compiled for ``target="cuda"``, exactly equal to the
    ``torch`` target, the gather timed beside ``index_select`` + permute;
 7. the serving kernels against their plain versions on the card, in f32
-   and bf16: RMSNorm at (2048, 1536) and (8, 1536); decode attention at
+   and bf16: RMSNorm at the decode steps' (8, 1536), (4, 2560), (4, 4096)
+   and the prefill's (2048, 1536), each timed in bf16 with its launch plan
+   (held to the Python twin) and its mean |error| against an f64
+   evaluation no larger than the plain version's; decode attention at
    8 slots x 12 query / 2 KV heads x 128 over 2048 positions with ragged
    lengths that include 0, 1 and 2048, a window case and a stride-0
    batch (the chunked prefill's broadcast row); flash attention at
@@ -63,8 +72,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tokens, 8 slots), once with monolithic prefill and once with
    ``--prefill-chunk 128``, each through flash attention, RMSNorm, the
    page gather and decode attention with no plain-version call; then
-   prefill ms per prompt, the decode step's device and host time and
-   its launches per kernel, one decode step's bf16 logits on both
+   prefill ms per prompt, the decode step's device and host time, its
+   launches per kernel and RMSNorm's device ms per step (profiler), one
+   decode step's bf16 logits on both
    targets against the same step at f32 (the kernels no less accurate
    than the plain versions), and the greedy tokens of every request
    against the ``torch`` target at f32 compute, exactly;
@@ -82,9 +92,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     weights): ``repro_torch.launch.serve.main`` (the wave loop) over 8
     requests in waves of 4, 512-token prompts, 32 new tokens, through
     the WKV scan and RMSNorm with no plain-version call; prefill ms,
-    the decode step's host and device time and its launches per
-    kernel, and every request's greedy tokens at f32 compute on the
-    ``cuda`` target against ``torch``, exactly;
+    the decode step's host and device time, its launches per kernel and
+    RMSNorm's device ms per step, and every request's greedy tokens at
+    f32 compute on the ``cuda`` target against ``torch``, exactly;
 11. the same for recurrentgemma-9b (38 layers, 9.4 B parameters) over 4
     requests of 2040 + 32 tokens, so decode crosses the ring's wrap at
     2048, through the RG-LRU scan, flash attention (head dim 256,
@@ -160,6 +170,12 @@ SPMM_MATRIX, SPMM_COLS = "PFlow_742", 16   # a block Krylov solver's RHS
 # of 4096 positions; block 0 of the pool is the scrap block
 KV_HEADS, HEAD_DIM, BLOCK, SLOTS, POSITIONS = 2, 128, 16, 64, 4096
 SAMPLES = 15
+# phase 7: RMSNorm's rows (rows, width, what they are): the decode steps
+# of the three served models and qwen2-1.5b's 2048-token prefill
+RMS_SHAPES = ((8, 1536, "qwen2-1.5b decode, 8 slots"),
+              (4, 2560, "rwkv6-3b decode, 4 rows"),
+              (4, 4096, "recurrentgemma-9b decode, 4 rows"),
+              (2048, 1536, "qwen2-1.5b prefill, 2048 tokens"))
 SPIN_CYCLES = 2_000_000   # ~1 ms at the H100's clocks: covers the host's enqueue
 # phase 8: launch/serve.py's CLI at the full qwen2-1.5b widths
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--paged", "--target", "cuda",
@@ -303,6 +319,7 @@ def main() -> int:
     from repro_torch.kernels import paged_kv as pk
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import row_reduce
     from repro_torch.kernels import rwkv6 as rw
     from repro_torch.kernels import spmm as spmm_mod
     from repro_torch.kernels import spmv as spmv_mod
@@ -390,7 +407,8 @@ def main() -> int:
 
     def device_busy(fn, n=5):
         """Kernel time per step from the profiler (the card's busy time,
-        gaps excluded), and the five largest kernels by time."""
+        gaps excluded), the five largest kernels by time, and every
+        kernel's time by name (ms per step)."""
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -404,7 +422,11 @@ def main() -> int:
             if t_us > 0:
                 by_name[ev.key] = t_us / n / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        return sum(by_name.values()), top
+        return sum(by_name.values()), top, by_name
+
+    def rms_ms(by_name: dict) -> float:
+        """RMSNorm's device ms per step: every lapis_rmsnorm kernel."""
+        return sum(t for k, t in by_name.items() if "lapis_rmsnorm" in k)
 
     def on_card(arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -415,6 +437,30 @@ def main() -> int:
                 f"{plan['bk']}, {plan['threads']} threads, split "
                 f"{plan['split']}, grid {plan['grid']}, smem "
                 f"{plan['smem_bytes']} B")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def row_plan(kind: str, n_rows: int, width: int, dtype) -> dict:
+        """The row reductions' launch plan (kernels/row_reduce.py) for a
+        contiguous, aligned (n_rows, width) tensor, failing unless the
+        library's exported C plan is the same on this card."""
+        if kind == "rmsnorm":
+            ks, fn, twin = rn.rmsnorm_kernel(), "lapis_rmsnorm_plan", \
+                rn.rms_plan
+        else:
+            ks, fn, twin = generic.softmax_kernel(), \
+                "lapis_row_softmax_plan", generic.softmax_plan
+        want = twin(n_rows, width, dtype, sms)
+        got = row_reduce.c_plan(_build.load(ks), fn, n_rows, width,
+                                dtype.itemsize, True, sms)
+        if got != want:
+            fail(f"{fn}({n_rows}, {width}) = {got}, its twin {want}")
+        return want
+
+    def row_plan_line(p: dict) -> str:
+        return (f"{p['path']} path: {p['tpr']} threads a row x {p['vpt']} "
+                f"vectors of {p['vec']}, {p['rows_per_block']} rows a block "
+                f"of {p['threads']}, grid {p['grid']}")
 
     # ---------------------------------------------------------------- 1
     print(card_line(), flush=True)
@@ -552,6 +598,25 @@ def main() -> int:
               f"{len(f32)} f32 FFMA kernels, "
               f"{sum(b.count('LDGSTS') for b in f32.values())} LDGSTS",
               flush=True)
+    # RMSNorm and the row softmax: every register-path kernel (f32 and
+    # bf16, 1..MAX_VPT vectors a thread) loads by 16-byte vectors and
+    # touches no local memory
+    for ks, sym in ((rn.rmsnorm_kernel(), "lapis_rmsnorm_vec"),
+                    (generic.softmax_kernel(), "lapis_softmax_vec")):
+        fns = {n: b for n, b in sass_functions(_build.sass(ks)).items()
+               if sym in n}
+        if len(fns) != 2 * row_reduce.MAX_VPT:
+            fail(f"{ks.name} SASS has {len(fns)} {sym} kernels, want "
+                 f"{2 * row_reduce.MAX_VPT}")
+        for n, body in fns.items():
+            if "LDG.E.128" not in body:
+                fail(f"{ks.name} {n} SASS has no 16-byte load (LDG.E.128)")
+            if re.search(r"\b(?:LDL|STL)\b", body):
+                fail(f"{ks.name} {n} SASS touches local memory (LDL/STL)")
+        print(f"{ks.name} SASS: {len(fns)} register-path kernels, "
+              f"{sum(b.count('LDG.E.128') for b in fns.values())} LDG.E.128 "
+              f"(16-byte loads), {sum(b.count('STG.E.128') for b in fns.values())} "
+              "STG.E.128, no LDL/STL", flush=True)
     print(f"decode_attention.cu SASS: {len(checks) - len(small_fns)} "
           f"kernels, {sum(b.count('HMMA') for b in da_fns.values())} HMMA "
           f"(mma.sync), {sum(b.count('LDGSTS') for b in da_fns.values())} "
@@ -613,6 +678,10 @@ def main() -> int:
     # (op, its module is the block) for every mapped nest on the path
     nests = [(op, m is mod) for m in (demo_mod, mod) for op in m.graph.ops
              if op.opname == "kokkos.team_parallel"]
+    # ResNet18's head: the (8, 1000) softmax of phase 13
+    nests += [(op, False) for op in rn_mod.graph.ops
+              if op.opname == "kokkos.team_parallel"
+              and op.attrs["kind"] == "reduce"]
     nest_ins = []     # (kernel name, label, op, inputs, region, on_block)
     for op, on_block in nests:
         shape = op.results[0].type.shape
@@ -832,11 +901,15 @@ def main() -> int:
                                "route": plan["route"], "ms": t_k,
                                "plain_ms": t_p, "library_ms": t_l,
                                "bound_ms": b_ms})
+    softmax_stats = []
     for name, label, op, args, region, on_block in nest_ins:
         shape = op.results[0].type.shape
         n_el = float(np.prod(shape))
         if name == "row_softmax":
             block_shape = op.attrs["tiling"]["block"]
+            sp = row_plan("softmax", int(n_el) // shape[-1], shape[-1],
+                          torch.float32)
+            label += f" ({row_plan_line(sp)})"
             t_k = time_ms(lambda: generic.row_softmax(args[0],
                                                       block=block_shape))
             t_p = time_ms(lambda: refs.softmax(args[0], -1))
@@ -862,7 +935,11 @@ def main() -> int:
               f"{b_ms:.6f} by {b_by})", flush=True)
         r = rows[name]
         # the block's nests are the main path's at full width; the demo's
-        # row softmax is the only softmax on the path
+        # and ResNet18's row softmaxes are the softmaxes on the paths
+        if name == "row_softmax":
+            softmax_stats.append({"shape": list(shape), "plan": sp,
+                                  "ms": t_k, "plain_ms": t_p,
+                                  "library_ms": t_l, "bound_ms": b_ms})
         if on_block or name == "row_softmax":
             r["ms"] += t_k
             r["plain_ms"] += t_p
@@ -1081,10 +1158,10 @@ def main() -> int:
         # once, so they differ by an ulp or two of the bf16 output
         tol_rms = 2e-5 if dtype == torch.float32 else 1e-2
         tol_att = 2e-4 if dtype == torch.float32 else 2e-2
-        for n_rows in (2048, 8):
-            xr, wr = rand_t((n_rows, d), dtype), rand_t((d,), dtype)
+        for n_rows, width, _ in RMS_SHAPES:
+            xr, wr = rand_t((n_rows, width), dtype), rand_t((width,), dtype)
             compare("rmsnorm", rn.rmsnorm(xr, wr), ref.rmsnorm(xr, wr),
-                    tol_rms, f"rmsnorm {n_rows}x{d} {tag} (x max|plain|)",
+                    tol_rms, f"rmsnorm {n_rows}x{width} {tag} (x max|plain|)",
                     relative=True)
         q = rand_t((SERVE_SLOTS, heads, hd), dtype)
         kc = rand_t((SERVE_SLOTS, kv_heads, s_dec, hd), dtype)
@@ -1136,19 +1213,38 @@ def main() -> int:
                     f"flash_attention {hq_}/{hkv_} heads {sq_}x{skv_}x{d_} "
                     f"{kw} {tag}")
 
-    # times in bf16, the serving dtype, at the phase's headline shapes
+    # times in bf16, the serving dtype, at the phase's headline shapes: the
+    # three decode steps' rows and qwen2-1.5b's 2048-token prefill; the
+    # kernels line's row sums qwen2-1.5b's two (the shapes of earlier runs)
     bf = torch.bfloat16
-    for n_rows in (2048, 8):
-        xr, wr = rand_t((n_rows, d), bf), rand_t((d,), bf)
+    rms_stats = {}
+    for n_rows, width, what in RMS_SHAPES:
+        xr, wr = rand_t((n_rows, width), bf), rand_t((width,), bf)
+        plan = row_plan("rmsnorm", n_rows, width, bf)
         t_k = time_ms(lambda: rn.rmsnorm(xr, wr))
         t_p = time_ms(lambda: ref.rmsnorm(xr, wr))
-        t_l = time_ms(lambda: F.rms_norm(xr, (d,), wr, eps=1e-6))
-        bytes_n, ops_n = 2.0 * (2 * xr.numel() + d), 4.0 * xr.numel()
+        t_l = time_ms(lambda: F.rms_norm(xr, (width,), wr, eps=1e-6))
+        bytes_n, ops_n = 2.0 * (2 * xr.numel() + width), 4.0 * xr.numel()
         b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
-        print(f"  rmsnorm {n_rows}x{d} bf16: {t_k:.4f} ms (plain {t_p:.4f}, "
-              f"F.rms_norm {t_l:.4f}, bound {b_ms:.6f} by {b_by})",
-              flush=True)
-        add_row("rmsnorm", t_k, t_p, t_l, ops_n, bytes_n)
+        # the bf16 kernel's mean |error| against an f64 evaluation, no
+        # larger than the plain version's
+        x64, w64 = xr.double(), wr.double()
+        exact = x64 * torch.rsqrt((x64 * x64).mean(-1, keepdim=True)
+                                  + 1e-6) * w64
+        err_k = float((rn.rmsnorm(xr, wr).double() - exact).abs().mean())
+        err_p = float((ref.rmsnorm(xr, wr).double() - exact).abs().mean())
+        print(f"  rmsnorm {n_rows}x{width} bf16 ({what}; {row_plan_line(plan)}"
+              f"): {t_k:.4f} ms (plain {t_p:.4f}, F.rms_norm {t_l:.4f}, "
+              f"bound {b_ms:.6f} by {b_by}, {b_ms / t_k:.0%} of it); mean "
+              f"|error| vs f64 {err_k:.3e}, plain {err_p:.3e}", flush=True)
+        if err_k > err_p:
+            fail(f"rmsnorm {n_rows}x{width} bf16: mean error {err_k:.3e} "
+                 f"above the plain version's {err_p:.3e}")
+        rms_stats[f"{n_rows}x{width}"] = {
+            "plan": plan, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": b_ms, "f64_mean_err": [err_k, err_p]}
+        if width == d:
+            add_row("rmsnorm", t_k, t_p, t_l, ops_n, bytes_n)
     q = rand_t((SERVE_SLOTS, heads, hd), bf)
     kc = rand_t((SERVE_SLOTS, kv_heads, s_dec, hd), bf)
     vc = rand_t((SERVE_SLOTS, kv_heads, s_dec, hd), bf)
@@ -1333,18 +1429,23 @@ def main() -> int:
     step_stats = {}
     for target in ("cuda", "torch"):
         host_t, wall = host_and_wall(lambda: step(target))
-        busy, top = device_busy(lambda: step(target))
+        busy, top, by_name = device_busy(lambda: step(target))
         if busy <= 0:
             fail("the profiler saw no kernel time in the decode step")
         step_stats[target] = {"host_ms": host_t, "wall_ms": wall,
                               "device_busy_ms": busy,
-                              "top_kernels_ms": top}
+                              "top_kernels_ms": top,
+                              "rmsnorm_ms": rms_ms(by_name)}
         print(f"  decode step, {target} target: device busy {busy:.3f} ms "
               f"(profiler), host {host_t:.3f} ms, synchronized wall "
               f"{wall:.3f} ms (host share {host_t / wall:.0%}, device busy "
               f"{busy / wall:.0%})", flush=True)
         print("    largest kernels (ms per step): " + "; ".join(
             f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
+        if target == "cuda":
+            print(f"    RMSNorm (lapis_rmsnorm*): {rms_ms(by_name):.4f} ms per "
+                  f"step over {per_step.get('rmsnorm', 0)} launches "
+                  "(profiler)", flush=True)
     del pools, sparams
     torch.cuda.empty_cache()
 
@@ -1624,7 +1725,7 @@ def main() -> int:
                 logits, cache = prefill()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            busy, top = device_busy(prefill, n=2)
+            busy, top, _ = device_busy(prefill, n=2)
         stats["prefill_ms"] = statistics.median(times)
         stats["prefill_device_busy_ms"] = busy
         stats["prefill_top_kernels_ms"] = top
@@ -1657,12 +1758,13 @@ def main() -> int:
         stats["decode_launches"] = per_step
         for target in ("cuda", "torch"):
             host_t, wall_t = host_and_wall(lambda: step(target))
-            busy, top = device_busy(lambda: step(target))
+            busy, top, by_name = device_busy(lambda: step(target))
             if busy <= 0:
                 fail("the profiler saw no kernel time in the decode step")
             stats[f"decode_{target}"] = {
                 "host_ms": host_t, "wall_ms": wall_t,
-                "device_busy_ms": busy, "top_kernels_ms": top}
+                "device_busy_ms": busy, "top_kernels_ms": top,
+                "rmsnorm_ms": rms_ms(by_name)}
             print(f"  decode step, {target} target: device busy "
                   f"{busy:.3f} ms (profiler), host {host_t:.3f} ms, "
                   f"synchronized wall {wall_t:.3f} ms (host share "
@@ -1670,6 +1772,10 @@ def main() -> int:
                   flush=True)
             print("    largest kernels (ms per step): " + "; ".join(
                 f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
+            if target == "cuda":
+                print(f"    RMSNorm (lapis_rmsnorm*): {rms_ms(by_name):.4f} ms "
+                      f"per step over {per_step.get('rmsnorm', 0)} launches "
+                      "(profiler)", flush=True)
         del sparams, cache, logits, logits_c, model
         torch.cuda.empty_cache()
 
@@ -1874,7 +1980,7 @@ def main() -> int:
     del rn_w64, probs64
     rn_ms = time_ms(lambda: rn_mod(xr), with_host=True)
     rn_lib_ms = time_ms(lambda: rn_lib(xr), with_host=True)
-    rn_busy, rn_top = device_busy(lambda: rn_mod(xr))
+    rn_busy, rn_top, _ = device_busy(lambda: rn_mod(xr))
     print(f"  compiled call: cuda target {rn_ms:.4f} ms, torch target "
           f"{rn_lib_ms:.4f} ms (with the host's share); cuda device busy "
           f"{rn_busy:.4f} ms (profiler)", flush=True)
@@ -2045,6 +2151,7 @@ def main() -> int:
                       "recurrent_kernels": recurrent_kernel_stats,
                       "flash_attention": flash_stats,
                       "decode_attention": decode_stats,
+                      "rmsnorm": rms_stats, "row_softmax": softmax_stats,
                       "serve_rwkv6_3b": rwkv_stats,
                       "serve_recurrentgemma_9b": rg_stats,
                       "batched": batched_stats, "resnet18": resnet_stats,

@@ -11,7 +11,8 @@ kernels run the nests:
   hand-written skeleton ``csrc/block_map.cuh``.  Generated libraries are
   built by nvcc at first use and cached by the hash of their source.
 * :func:`row_softmax` — a ``kind='reduce'`` nest (last-axis softmax) on
-  the fixed ``csrc/row_softmax.cu``.
+  the fixed ``csrc/row_softmax.cu``: rows read once into registers by
+  16-byte loads, launched by the plan :func:`softmax_plan` mirrors.
 
 Each wrapper runs its plain torch version when — and only when — its
 tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
@@ -28,7 +29,7 @@ import torch
 from repro_torch.core import refs
 from repro_torch.core.ir import Op, Region, Value
 from repro_torch.core.tracer import dtype_name, torch_dtype
-from repro_torch.kernels import _build, codegen
+from repro_torch.kernels import _build, codegen, row_reduce
 
 
 def one_op_region(op: Op) -> Region:
@@ -125,6 +126,16 @@ def softmax_kernel() -> _build.KernelSource:
     return _build.KernelSource("row_softmax", _build.csrc("row_softmax.cu"))
 
 
+def softmax_plan(rows: int, cols: int, dtype: torch.dtype, sm_count: int,
+                 aligned: bool = True) -> dict:
+    """The launch ``csrc/row_softmax.cu`` makes for ``rows`` rows of
+    ``cols`` values of ``dtype`` on a card of ``sm_count`` SMs: the
+    register path for rows of at most ``SOFTMAX_MAX_COLS`` (the pass's
+    limit), :func:`row_reduce.row_plan`."""
+    return row_reduce.row_plan(rows, cols, dtype.itemsize, aligned, sm_count,
+                               row_reduce.SOFTMAX_MAX_COLS)
+
+
 def _softmax_launcher(dtype: torch.dtype):
     fn = _SOFTMAX_LAUNCHERS.get(dtype)
     if fn is None:
@@ -141,9 +152,10 @@ def _softmax_launcher(dtype: torch.dtype):
 
 def row_softmax(x: torch.Tensor, *, axis: int = -1,
                 block: tuple = ()) -> torch.Tensor:
-    """Softmax over the last axis, one thread block per row.  ``block``
-    is the nest's tiling; its last extent must hold whole rows (the
-    linalg_to_parallel pass admits rows of at most 1024)."""
+    """Softmax over the last axis, each row read once into registers
+    (:func:`softmax_plan`; wider or unaligned rows take a block-stride
+    loop).  ``block`` is the nest's tiling; its last extent must hold
+    whole rows (the linalg_to_parallel pass admits rows of at most 1024)."""
     if axis not in (-1, x.ndim - 1):
         raise ValueError(f"row_softmax reduces the last axis, not {axis}")
     if _build.on_cpu([x], "row_softmax"):

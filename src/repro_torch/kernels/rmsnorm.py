@@ -1,7 +1,11 @@
 """Fused RMSNorm — the port of the reference's ``kernels/rmsnorm.py``.
 
-:func:`rmsnorm` launches ``csrc/rmsnorm.cu`` on CUDA tensors: one warp
-per row computes x·rsqrt(mean(x²)+eps)·w in f32 and writes x's dtype.
+:func:`rmsnorm` launches ``csrc/rmsnorm.cu`` on CUDA tensors: each row is
+read once into registers by 16-byte loads, and x·rsqrt(mean(x²)+eps)·w is
+computed in f32 and written in x's dtype.  :func:`rms_plan` is the twin
+of the kernel's launch plan (``csrc/row_reduce.cuh``): a warp a row for a
+prefill's thousands of rows, a block a row for a decode step's handful,
+a block-stride loop for widths the vectors cannot take.
 The norm runs twice per layer and once before the head, in prefill
 (thousands of rows) and decode (one row per slot) alike; the weight is
 in x's dtype there (``cast_compute`` casts every parameter).  On CPU tensors
@@ -13,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, row_reduce
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _LAUNCHERS: dict = {}     # dtype -> ctypes function
@@ -22,6 +26,14 @@ _LAUNCHERS: dict = {}     # dtype -> ctypes function
 def rmsnorm_kernel() -> _build.KernelSource:
     """The build record of ``csrc/rmsnorm.cu``."""
     return _build.KernelSource("rmsnorm", _build.csrc("rmsnorm.cu"))
+
+
+def rms_plan(rows: int, d: int, dtype: torch.dtype, sm_count: int,
+             aligned: bool = True) -> dict:
+    """The launch ``csrc/rmsnorm.cu`` makes for ``rows`` rows of ``d``
+    values of ``dtype`` on a card of ``sm_count`` SMs (``aligned``: x, w
+    and out on 16-byte boundaries): :func:`row_reduce.row_plan`."""
+    return row_reduce.row_plan(rows, d, dtype.itemsize, aligned, sm_count)
 
 
 def _launcher(dtype: torch.dtype):

@@ -93,11 +93,26 @@ def test_generated_region_kernel_matches_plain(card, rng, shape):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("rows,cols", [(8, 10), (300, 1024), (5, 33)])
-def test_row_softmax_kernel_matches_plain(card, rng, rows, cols):
-    x = _randn(rng, (rows, cols), 4.0)
+# (8, 10): the mlp demo (general path); (8, 1000): ResNet18's head (a
+# block a row); (4096, 1024): a warp a row at the pass's widest; (4, 4096):
+# wider than the pass admits (general path, values re-read)
+@pytest.mark.parametrize("rows,cols", [(8, 10), (300, 1024), (5, 33),
+                                       (8, 1000), (4096, 1024), (4, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_softmax_kernel_matches_plain(card, rng, rows, cols, dtype):
+    x = _randn(rng, (rows, cols), 4.0, dtype=dtype)
+    before = generic.row_softmax.launches
     got = generic.row_softmax(x)
-    torch.testing.assert_close(got, softmax(x, -1), rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    assert generic.row_softmax.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, softmax(x, -1), rtol=1e-5, atol=1e-6)
+    else:
+        # bf16: the kernel computes in f32 and rounds once, so it is the
+        # plain version in f32 rounded to bf16, to an ulp (2^-8 relative)
+        torch.testing.assert_close(got.float(), softmax(x.float(), -1),
+                                   rtol=2 ** -8, atol=1e-6)
 
 
 def test_mlp_demo_runs_through_the_kernels_only(card):
@@ -242,7 +257,9 @@ _TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(5, 64), (3, 33, 128), (1, 1, 256),
-                                   (8, 1536), (2048, 1536), (7, 100)])
+                                   (8, 1536), (2048, 1536), (7, 100),
+                                   (4, 2560), (4, 4096), (1, 7168),
+                                   (2048, 4096)])
 def test_rmsnorm_kernel_matches_plain(card, rng, shape, dtype):
     x = _randn(rng, shape, dtype=dtype)
     w = _randn(rng, (shape[-1],), dtype=dtype)
@@ -254,6 +271,82 @@ def test_rmsnorm_kernel_matches_plain(card, rng, shape, dtype):
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), ref.rmsnorm(x, w).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_unaligned_rows(card, rng, dtype):
+    """A slice x[:, 1:] of a wider row (the wrapper makes it contiguous:
+    the vector path), and a contiguous view whose base is off 16 bytes
+    (the general path), each held to the plain version."""
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    w = _randn(rng, (1536,), dtype=dtype)
+    wide = _randn(rng, (8, 1537), dtype=dtype)
+    flat = _randn(rng, (8 * 1536 + 1,), dtype=dtype)
+    off = flat[1:].view(8, 1536)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    for x, aligned, path in ((wide[:, 1:], True, "block"),
+                             (off, False, "general")):
+        assert rn_mod.rms_plan(8, 1536, dtype, 132,
+                               aligned=aligned)["path"] == path
+        before = rn_mod.rmsnorm.launches
+        got = rn_mod.rmsnorm(x, w)
+        torch.cuda.synchronize()
+        assert rn_mod.rmsnorm.launches == before + 1
+        torch.testing.assert_close(got.float(), ref.rmsnorm(x, w).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("rows,d", [(8, 1536), (4, 2560), (4, 4096)])
+def test_rmsnorm_bf16_error_no_worse_than_plain(card, rng, rows, d):
+    """At the three decode steps' shapes, the bf16 kernel's mean |error|
+    against an f64 evaluation is no larger than the plain version's (both
+    compute in f32 and round once; the sum order differs)."""
+    x = _randn(rng, (rows, d), dtype=torch.bfloat16)
+    w = _randn(rng, (d,), dtype=torch.bfloat16)
+    x64, w64 = x.double(), w.double()
+    exact = x64 * torch.rsqrt((x64 * x64).mean(-1, keepdim=True) + 1e-6) * w64
+    err_k = float((rn_mod.rmsnorm(x, w).double() - exact).abs().mean())
+    err_p = float((ref.rmsnorm(x, w).double() - exact).abs().mean())
+    assert err_k <= err_p, (err_k, err_p)
+
+
+def test_row_plans_are_the_launchers(card):
+    """lapis_rmsnorm_plan and lapis_row_softmax_plan are the Python
+    twins' plans (kernels/row_reduce.py), on this card's SM count too."""
+    from repro_torch.kernels import _build, row_reduce
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    libs = (("lapis_rmsnorm_plan", _build.load(rn_mod.rmsnorm_kernel()),
+             rn_mod.rms_plan),
+            ("lapis_row_softmax_plan", _build.load(generic.softmax_kernel()),
+             generic.softmax_plan))
+    for fn, lib, twin in libs:
+        for rows, d in itertools.product(
+                (0, 1, 4, 8, 100, 1055, 1056, 2048, 70000),
+                (1, 10, 33, 64, 100, 130, 512, 1000, 1024, 1536, 2560, 4096,
+                 5120, 6144, 7168, 16384, 16392, 40000)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for al, sm in itertools.product((True, False), (1, 132, sms)):
+                    got = row_reduce.c_plan(lib, fn, rows, d, dtype.itemsize,
+                                            al, sm)
+                    assert got == twin(rows, d, dtype, sm, aligned=al), \
+                        (fn, rows, d, dtype, al, sm)
+
+
+def test_row_reduce_sass_has_16_byte_loads_and_no_spills(card):
+    """Every register-path kernel of both libraries loads by LDG.E.128
+    (the .CONSTANT read-only form included) and touches no local memory
+    (LDL / STL)."""
+    import re
+
+    from repro_torch.kernels import _build
+    for ks, sym in ((rn_mod.rmsnorm_kernel(), "lapis_rmsnorm_vec"),
+                    (generic.softmax_kernel(), "lapis_softmax_vec")):
+        parts = re.split(r"Function : (\S+)", _build.sass(ks))
+        fns = {n: b for n, b in zip(parts[1::2], parts[2::2]) if sym in n}
+        assert len(fns) == 16      # f32 and bf16, 1..8 vectors a thread
+        for n, body in fns.items():
+            assert "LDG.E.128" in body, n
+            assert not re.search(r"\b(?:LDL|STL)\b", body), n
 
 
 def _decode_case(rng, b, hq, hkv, s, d, dtype, lengths=None):
