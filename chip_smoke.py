@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and UTMALDG and every f32 FFMA kernel LDGSTS, and every register-path
    kernel of RMSNorm and the row softmax (``rmsnorm.cu``,
    ``row_softmax.cu``: f32 and bf16, 1-8 vectors a thread) 16-byte loads
-   (LDG.E.128) and no local memory (LDL / STL);
+   (LDG.E.128) and no local memory (LDL / STL), every RG-LRU kernel
+   (``rglru.cu``) no local memory, its vector kernels 16-byte cp.async into
+   their shared ring (LDGSTS.E.BYPASS.128),
+   and every SpMV kernel (``spmv.cu``) its evict-first stream loads
+   (LDG.E.EF..., 16 bytes on the vector path);
 2. hold each kernel against its plain torch version on the card at the
    shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
    block at its published widths; SpMV and SpMM on the sparse test
@@ -44,8 +48,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    columns, as ``benchmarks/spmv_bench.py`` builds them, at full rows),
    each compiled with ``ops.spmv_csr`` for ``target="cuda"``, held to the
    plain CSR version and timed beside cuSPARSE
-   (``torch.sparse_csr_tensor @ x``); then SpMM of PFlow_742 by 16
-   dense columns beside ``torch.sparse.mm``;
+   (``torch.sparse_csr_tensor @ x``) and the x gather alone
+   (``x.index_select(0, cols)``, the practical ceiling), its launch plan
+   printed (the C plan held to its Python twin); then SpMM of PFlow_742
+   by 16 dense columns beside ``torch.sparse.mm``;
 6. the paged decode step at qwen2-1.5b's KV widths (2 KV heads, head dim
    128, block 16, f32), 64 slots × 4096 positions: ``page_append`` →
    ``page_gather`` compiled for ``target="cuda"``, exactly equal to the
@@ -87,7 +93,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    recurrentgemma's 16 / 1 heads x 256 with window 2048 and decode
    attention over its 2048-slot ring (with the same f64 error gate as
    phase 7); each timed in bf16 beside its bound, its plain version and,
-   for attention, SDPA (no one torch call computes a scan);
+   for attention, SDPA (no one torch call computes a scan), the RG-LRU
+   scan also at the decode step (4 x 1 x 4096 from a given state), each
+   with its launch plan (the C plan held to its Python twin);
 10. serving rwkv6-3b at its published widths (32 layers, seeded bf16
     weights): ``repro_torch.launch.serve.main`` (the wave loop) over 8
     requests in waves of 4, 512-token prompts, 32 new tokens, through
@@ -99,7 +107,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     requests of 2040 + 32 tokens, so decode crosses the ring's wrap at
     2048, through the RG-LRU scan, flash attention (head dim 256,
     window), decode attention (16 query heads per KV head) and RMSNorm,
-    with the wave prefill's device time and largest kernels from the
+    with the wave prefill's device time and largest kernels, and the
+    RG-LRU scan's device ms per prefill and per decode step, from the
     profiler; each model is freed before the next;
 12. batched products through ``pipeline.compile(lambda a, b:
     ops.matmul(a, b), target="cuda")`` in f32 and bf16 at paper Fig
@@ -139,6 +148,7 @@ here from this run's shapes and the H100 SXM data-sheet peaks below.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -424,9 +434,10 @@ def main() -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         return sum(by_name.values()), top, by_name
 
-    def rms_ms(by_name: dict) -> float:
-        """RMSNorm's device ms per step: every lapis_rmsnorm kernel."""
-        return sum(t for k, t in by_name.items() if "lapis_rmsnorm" in k)
+    def rms_ms(by_name: dict, kernel: str = "lapis_rmsnorm") -> float:
+        """RMSNorm's device ms per step: every lapis_rmsnorm kernel (or
+        every kernel whose name holds ``kernel``)."""
+        return sum(t for k, t in by_name.items() if kernel in k)
 
     def on_card(arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
@@ -455,6 +466,28 @@ def main() -> int:
                                 dtype.itemsize, True, sms)
         if got != want:
             fail(f"{fn}({n_rows}, {width}) = {got}, its twin {want}")
+        return want
+
+    def spmv_plan(n_rows: int, tiling: dict) -> dict:
+        """SpMV's launch plan (kernels/spmv.py::spmv_plan) for 16-byte
+        aligned CSR arrays, failing unless the library's C plan is the
+        same."""
+        rb, rw = spmv_mod.check_tiling(tiling)
+        want = spmv_mod.spmv_plan(n_rows, rb, rw)
+        got = spmv_mod.c_plan(n_rows, rb, rw)
+        if got != want:
+            fail(f"lapis_spmv_plan({n_rows}, {rb}, {rw}) = {got}, its twin "
+                 f"{want}")
+        return want
+
+    def rglru_plan(b_: int, t_: int, d_: int, dtype) -> dict:
+        """The RG-LRU scan's launch plan (kernels/rglru.py::rglru_plan) on
+        this card, failing unless the library's C plan is the same."""
+        want = rg.rglru_plan(b_, t_, d_, dtype, sms)
+        got = rg.c_plan(b_, t_, d_, dtype, sms)
+        if got != want:
+            fail(f"lapis_rglru_plan({b_}, {t_}, {d_}) = {got}, its twin "
+                 f"{want}")
         return want
 
     def row_plan_line(p: dict) -> str:
@@ -617,6 +650,43 @@ def main() -> int:
               f"{sum(b.count('LDG.E.128') for b in fns.values())} LDG.E.128 "
               f"(16-byte loads), {sum(b.count('STG.E.128') for b in fns.values())} "
               "STG.E.128, no LDL/STL", flush=True)
+    # the RG-LRU scan: no kernel touches local memory; the vector kernels
+    # copy x, r, i into their shared ring by 16-byte cp.async
+    # (LDGSTS.E.BYPASS.128).  SpMV: every kernel
+    # streams its columns and values marked evict-first in L1 (cuobjdump
+    # spells ld.global.nc.L1::evict_first LDG.E.EF...; the x gather's L2
+    # evict-last policy rides in the memory descriptor), the vector
+    # kernels by 16 bytes (LDG.E.EF.128.CONSTANT)
+    rg_fns = {n: b for n, b in sass_functions(
+        _build.sass(rg.rglru_kernel())).items()
+        if "lapis_rglru_kernel" in n}
+    rg_vec = {n: b for n, b in rg_fns.items()
+              if "__nv_bfloat16Li8E" in n or "IfLi4E" in n}
+    if len(rg_fns) != 12 or len(rg_vec) != 4:
+        fail(f"rglru.cu SASS has {len(rg_fns)} kernels ({len(rg_vec)} "
+             "vector), want 12 (4)")
+    for n, body in rg_fns.items():
+        if re.search(r"\b(?:LDL|STL)\b", body):
+            fail(f"rglru.cu {n} SASS touches local memory (LDL/STL)")
+    for n, body in rg_vec.items():
+        if "LDGSTS.E.BYPASS.128" not in body:
+            fail(f"rglru.cu {n} SASS has no LDGSTS.E.BYPASS.128")
+    sp_fns = {n: b for n, b in sass_functions(
+        _build.sass(spmv_mod.spmv_kernel())).items()
+        if "lapis_spmv_kernel" in n}
+    if len(sp_fns) != 24:
+        fail(f"spmv.cu SASS has {len(sp_fns)} kernels, want 24")
+    for n, body in sp_fns.items():
+        if "LDG.E.EF." not in body or ("Li4ELi2EE" in n and
+                                       "LDG.E.EF.128.CONSTANT" not in body):
+            fail(f"spmv.cu {n} SASS lacks its evict-first stream loads")
+    print(f"rglru.cu SASS: {len(rg_fns)} kernels, no LDL/STL, "
+          f"{sum(b.count('LDGSTS.E.BYPASS.128') for b in rg_vec.values())} "
+          "LDGSTS.E.BYPASS.128 (cp.async into the ring); spmv.cu SASS: "
+          f"{len(sp_fns)} kernels, loads "
+          + ", ".join(f"{k} {v}" for k, v in sorted(collections.Counter(
+              re.findall(r"LDG\.E[A-Z0-9.]*", "".join(sp_fns.values())))
+              .items())), flush=True)
     print(f"decode_attention.cu SASS: {len(checks) - len(small_fns)} "
           f"kernels, {sum(b.count('HMMA') for b in da_fns.values())} HMMA "
           f"(mma.sync), {sum(b.count('LDGSTS') for b in da_fns.values())} "
@@ -988,18 +1058,24 @@ def main() -> int:
         t_call = time_ms(lambda: smod(ip, cols, vals, xv), with_host=True)
         t_p = time_ms(lambda: spmv_mod.spmv_reference(a, xv))
         t_l = time_ms(lambda: torch.mv(lib_a, xv))
+        # the practical ceiling: the x gather alone, on the same columns
+        t_g = time_ms(lambda: xv.index_select(0, cols))
         bytes_n = 8.0 * nnz + 8.0 * n + 4.0 * (n + 1)
         b_ms, b_by = bound(bytes_n, 2.0 * nnz)
-        print(f"  spmv {name} tiling {tiling}: kernel {t_k:.4f} ms, call "
-              f"{t_call:.4f} ms (host incl.), plain {t_p:.4f}, cuSPARSE "
-              f"{t_l:.4f} (vs kernel {lib_err:.1e}), bound {b_ms:.4f} by "
+        plan = spmv_plan(n, tiling)
+        print(f"  spmv {name} tiling {tiling} (plan {plan['lanes']} lanes x "
+              f"{plan['vec']} entries, unroll {plan['unroll']}, "
+              f"{plan['threads']} threads, grid {plan['grid']}): kernel "
+              f"{t_k:.4f} ms, call {t_call:.4f} ms (host incl.), plain "
+              f"{t_p:.4f}, cuSPARSE {t_l:.4f} (vs kernel {lib_err:.1e}), "
+              f"gather alone (index_select) {t_g:.4f}, bound {b_ms:.4f} by "
               f"{b_by} ({bytes_n / t_k / 1e6:.0f} GB/s)", flush=True)
         add_row("spmv", t_k, t_p, t_l, 2.0 * nnz, bytes_n)
         spmv_stats.append({"matrix": name, "rows": n, "nnz": nnz,
                            "max_nnz_row": max_row, "tiling": tiling,
-                           "kernel_ms": t_k, "call_ms": t_call,
+                           "plan": plan, "kernel_ms": t_k, "call_ms": t_call,
                            "plain_ms": t_p, "cusparse_ms": t_l,
-                           "bound_ms": b_ms})
+                           "gather_ms": t_g, "bound_ms": b_ms})
         if name == SPMM_MATRIX:
             spmm_in = (n, nnz, max_row, ip, cols, vals, a, lib_a)
         del ip, cols, vals, xv, y, a, lib_a
@@ -1605,19 +1681,32 @@ def main() -> int:
     recurrent_kernel_stats["rwkv6_scan"] = {"ms": t_k, "plain_ms": t_p,
                                             "bound_ms": b_ms}
     ins = rglru_inputs(bf)[:4]
+    plan = rglru_plan(rg_b, rg_t, rg_d, bf)
     t_k = time_ms(lambda: rg.rglru_scan(*ins))
     t_p = time_ms(lambda: ref.rglru_scan(*ins))
     n_el = rg_b * rg_t * rg_d
     bytes_n = 2.0 * (4 * n_el + rg_d) + 4.0 * rg_b * rg_d
     ops_n = 17.0 * n_el
     b_ms, b_by = bound(bytes_n, ops_n, PEAK_FP32_PER_S)
-    print(f"  rglru_scan {rg_b}x{rg_t}x{rg_d} bf16: {t_k:.4f} ms (plain "
-          f"{t_p:.4f}, no library call, bound {b_ms:.6f} by {b_by}: "
-          f"{bytes_n / 1e6:.1f} MB; {bytes_n / t_k / 1e6:.0f} GB/s)",
+    print(f"  rglru_scan {rg_b}x{rg_t}x{rg_d} bf16 (plan {plan}): {t_k:.4f} "
+          f"ms (plain {t_p:.4f}, no library call, bound {b_ms:.6f} by "
+          f"{b_by}: {bytes_n / 1e6:.1f} MB; {bytes_n / t_k / 1e6:.0f} GB/s)",
           flush=True)
     add_row("rglru_scan", t_k, t_p, 0.0, ops_n, bytes_n)
     recurrent_kernel_stats["rglru_scan"] = {"ms": t_k, "plain_ms": t_p,
-                                            "bound_ms": b_ms}
+                                            "bound_ms": b_ms, "plan": plan}
+    # the serving decode step's scan: T = 1 against the cached h
+    ins = rglru_inputs(bf, t=1, state=True)
+    plan = rglru_plan(rg_b, 1, rg_d, bf)
+    t_k = time_ms(lambda: rg.rglru_scan(*ins))
+    t_p = time_ms(lambda: ref.rglru_scan(*ins))
+    bytes_d = 2.0 * (4 * rg_b * rg_d + rg_d) + 8.0 * rg_b * rg_d
+    b_d, b_dby = bound(bytes_d, 17.0 * rg_b * rg_d, PEAK_FP32_PER_S)
+    print(f"  rglru_scan decode step {rg_b}x1x{rg_d} bf16, given state (plan "
+          f"{plan}): {t_k:.4f} ms (plain {t_p:.4f}, bound {b_d:.6f} by "
+          f"{b_dby})", flush=True)
+    recurrent_kernel_stats["rglru_scan_decode"] = {
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b_d, "plan": plan}
     for name in ("rwkv6_scan", "rglru_scan"):
         rows[name]["library_ms"] = None     # no one torch call scans
     qf = rand_t((rg_b, rg_hq, rg_t, rg_hd), bf)
@@ -1725,16 +1814,20 @@ def main() -> int:
                 logits, cache = prefill()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            busy, top, _ = device_busy(prefill, n=2)
+            busy, top, by_name = device_busy(prefill, n=2)
         stats["prefill_ms"] = statistics.median(times)
         stats["prefill_device_busy_ms"] = busy
         stats["prefill_top_kernels_ms"] = top
+        stats["prefill_rglru_ms"] = rms_ms(by_name, "lapis_rglru")
         print(f"  wave prefill of {batch} x {plen} tokens (bf16): "
               f"{stats['prefill_ms']:.2f} ms (median of 3, host clock, "
               f"synchronized); device busy {busy:.2f} ms (profiler)",
               flush=True)
         print("    largest prefill kernels (ms per prefill): " + "; ".join(
             f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
+        if "rglru_scan" in need:
+            print(f"    RG-LRU (lapis_rglru*): {stats['prefill_rglru_ms']:.4f} "
+                  "ms per prefill (profiler)", flush=True)
         tok = torch.argmax(logits[:, :cfg_a.vocab_size], -1).to(torch.int32)
 
         def step(target):
@@ -1764,7 +1857,8 @@ def main() -> int:
             stats[f"decode_{target}"] = {
                 "host_ms": host_t, "wall_ms": wall_t,
                 "device_busy_ms": busy, "top_kernels_ms": top,
-                "rmsnorm_ms": rms_ms(by_name)}
+                "rmsnorm_ms": rms_ms(by_name),
+                "rglru_ms": rms_ms(by_name, "lapis_rglru")}
             print(f"  decode step, {target} target: device busy "
                   f"{busy:.3f} ms (profiler), host {host_t:.3f} ms, "
                   f"synchronized wall {wall_t:.3f} ms (host share "
@@ -1776,6 +1870,11 @@ def main() -> int:
                 print(f"    RMSNorm (lapis_rmsnorm*): {rms_ms(by_name):.4f} ms "
                       f"per step over {per_step.get('rmsnorm', 0)} launches "
                       "(profiler)", flush=True)
+                if "rglru_scan" in per_step:
+                    print("    RG-LRU (lapis_rglru*): "
+                          f"{rms_ms(by_name, 'lapis_rglru'):.4f} ms per step "
+                          f"over {per_step['rglru_scan']} launches "
+                          "(profiler)", flush=True)
         del sparams, cache, logits, logits_c, model
         torch.cuda.empty_cache()
 

@@ -9,11 +9,14 @@ the plain versions of SpMV and SpMM on either layout live here.
 :func:`spmv` launches ``csrc/spmv.cu``.  The TPU kernel read padded ELL
 because a TPU has no warps, with ``x[cols]`` gathered by XLA outside it.
 On Hopper the kernel is the paper's own GPU form: it reads CSR directly,
-row-parallel teams of ``row_width`` lanes each running a vector loop
-over one row's entries, gathering ``x[col]`` inside and reducing with
-warp shuffles.  The ``cuda`` backend therefore declares no
-``ell-layout``: ELL would add a conversion to every call and read up to
-13× the CSR bytes (width 192 against a mean of 14.34 on StocF-1465).
+row-parallel groups of lanes each running a vector loop over one row's
+entries (16-byte loads of the columns and values, marked evict-first in
+L1, all issued before the ``x[col]`` gathers, which are marked
+evict-last in L2), reducing with warp shuffles.
+:func:`spmv_plan` is its launch plan, the twin of ``plan`` in the source.
+The ``cuda`` backend therefore declares no ``ell-layout``: ELL would add
+a conversion to every call and read up to 13× the CSR bytes (width 192
+against a mean of 14.34 on StocF-1465).
 """
 from __future__ import annotations
 
@@ -25,7 +28,10 @@ import torch
 from repro_torch.core.ir import ell_storage_width
 from repro_torch.kernels import _build, ref
 
-MAX_ROW_WIDTH = 32        # lanes per row: one warp at most
+MAX_ROW_WIDTH = 32        # entries of a row per iteration (the tiling)
+MAX_THREADS = 256         # most threads a block
+VEC = 4                   # entries a 16-byte load of the columns holds
+PLAN_FIELDS = ("vec", "lanes", "unroll", "groups", "threads", "grid")
 _FNS = {torch.float32: "lapis_spmv_f32", torch.bfloat16: "lapis_spmv_bf16"}
 _LAUNCHERS: dict = {}     # dtype -> ctypes function
 
@@ -131,8 +137,8 @@ def default_tiling(n_rows: int, nnz: int) -> dict:
 def check_tiling(tiling: dict) -> tuple:
     """(row_block, row_width) if ``csrc/spmv.cu`` and ``csrc/spmm.cu`` can
     run this tiling, else ValueError.  Any row block runs (a block loops
-    over its rows when row_block × lanes exceeds 1024 threads); a row's
-    lanes must fit one warp."""
+    over its rows when they outnumber its thread rows); a row's lanes
+    must fit one warp."""
     row_block, row_width = int(tiling["row_block"]), int(tiling["row_width"])
     if row_block < 1 or not 1 <= row_width <= MAX_ROW_WIDTH:
         raise ValueError(f"sparse kernels cannot run tiling row_block="
@@ -165,6 +171,46 @@ def check_csr(a, dense: torch.Tensor, what: str) -> None:
                          f"operand of {tuple(dense.shape)}")
 
 
+def spmv_plan(n_rows: int, row_block: int, row_width: int,
+              aligned: bool = True) -> dict:
+    """The launch of ``csrc/spmv.cu`` at a tiling — the twin of ``plan``
+    in the source.  ``row_width`` entries of a row an iteration become
+    ``lanes`` (a power of two, one warp at most) x ``vec`` entries (4 when
+    the columns and values are 16-byte loads, 1 on an unaligned base);
+    a row_width of the warp's 32 (rows of 25+ entries on average) walks
+    twice that: 16 lanes of 4 entries;
+    each lane issues ``unroll`` vectors' loads before its gathers.  A
+    block of ``threads`` (at most 256) holds ``groups`` rows at a time and
+    loops over its ``row_block`` rows; ``grid`` blocks cover the rows."""
+    vec = VEC if aligned else 1
+    # a row as wide as the warp walks 2 x row_width an iteration
+    per_lane = -(-((2 if row_width >= MAX_ROW_WIDTH else 1) * row_width)
+                 // vec)
+    lanes = 1
+    while lanes < per_lane and lanes < MAX_ROW_WIDTH:
+        lanes *= 2
+    threads = -(-min(row_block * lanes, MAX_THREADS) // 32) * 32
+    return dict(vec=vec, lanes=lanes, unroll=2 if vec > 1 else 4,
+                groups=threads // lanes, threads=threads,
+                grid=-(-n_rows // row_block))
+
+
+def c_plan(n_rows: int, row_block: int, row_width: int,
+           aligned: bool = True) -> dict:
+    """The plan the library's exported ``lapis_spmv_plan`` computes, in
+    :func:`spmv_plan`'s form (builds the library)."""
+    fn = _build.load(spmv_kernel()).lapis_spmv_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    rc = fn(n_rows, row_block, row_width, int(aligned), out)
+    if rc != 0:
+        raise ValueError(f"lapis_spmv_plan({n_rows}, {row_block}, "
+                         f"{row_width}): error {rc}")
+    return dict(zip(PLAN_FIELDS, out))
+
+
 def spmv_kernel() -> _build.KernelSource:
     """The build record of ``csrc/spmv.cu``."""
     return _build.KernelSource("spmv", _build.csrc("spmv.cu"))
@@ -175,7 +221,7 @@ def _launcher(dtype: torch.dtype):
     if fn is None:
         fn = getattr(_build.load(spmv_kernel()), _FNS[dtype])
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
+            [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LAUNCHERS[dtype] = fn
     return fn
@@ -202,7 +248,7 @@ def spmv(a, x: torch.Tensor, *, tiling: Optional[dict] = None
                                   (a.indptr, a.indices, a.values, x))
     _build.check(fn(indptr.data_ptr(), indices.data_ptr(),
                     values.data_ptr(), x.data_ptr(), y.data_ptr(),
-                    a.n_rows, row_block, row_width,
+                    a.n_rows, row_block, row_width, values.shape[0],
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "spmv")
     spmv.launches += 1

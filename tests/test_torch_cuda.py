@@ -163,6 +163,10 @@ _SPARSE_CASES = {
     "dense-row": lambda r: _csr_on_card(
         r, 64, 512, np.r_[[512], r.integers(0, 3, 63)]),
     "nnz-zero": lambda r: _csr_on_card(r, 17, 9, np.zeros(17, int)),
+    # rows of 0, 1 and 345 entries (audikw_1's longest) among short ones
+    "lengths-0-1-345": lambda r: _csr_on_card(
+        r, 40, 900, np.r_[[0, 1, 345, 0, 1], r.integers(0, 20, 33), [345,
+                                                                     1]]),
 }
 _TILINGS = [None, {"row_block": 1, "row_width": 1},
             {"row_block": 8, "row_width": 24},
@@ -186,6 +190,93 @@ def test_spmv_and_spmm_kernels_match_plain(card, rng, case, tiling):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(yb, spmv_mod.spmm_reference(a, b),
                                rtol=1e-5, atol=1e-5)
+
+
+def _csr_view(a, offset):
+    """The same matrix with its columns and values read from ``offset``
+    entries into a longer buffer (row starts off the 16-byte vector)."""
+    if not offset:
+        return a
+    cols = torch.empty(offset + a.indices.numel(), dtype=torch.int32,
+                       device="cuda")
+    vals = torch.empty(offset + a.values.numel(), dtype=a.values.dtype,
+                       device="cuda")
+    cols[offset:] = a.indices
+    vals[offset:] = a.values
+    return a._replace(indices=cols[offset:], values=vals[offset:])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiling", _TILINGS)
+@pytest.mark.parametrize("case", ["random", "lengths-0-1-345", "nnz-zero"])
+def test_spmv_kernel_in_both_dtypes_and_off_the_vector(card, rng, case,
+                                                        tiling, dtype,
+                                                        offset):
+    """f32 and bf16 (f32 accumulation, one rounding: held to the f32
+    product of the same bf16 inputs within 2^-8 of the row's magnitude),
+    with the columns and values on the 16-byte vector path or one entry
+    off it (the scalar path)."""
+    a = _SPARSE_CASES[case](rng)
+    a = _csr_view(a._replace(values=a.values.to(dtype)), offset)
+    x = _randn(rng, (a.n_cols,), dtype=dtype)
+    before = spmv_mod.spmv.launches
+    y = spmv_mod.spmv(a, x, tiling=tiling)
+    torch.cuda.synchronize()
+    assert spmv_mod.spmv.launches == before + 1 and y.dtype == dtype
+    a32 = a._replace(values=a.values.float())
+    want = spmv_mod.spmv_reference(a32, x.float())
+    scale = spmv_mod.spmv_reference(a32._replace(values=a32.values.abs()),
+                                    x.float().abs())
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert bool(((y.float() - want).abs() <= tol * (scale + 1.0)).all())
+
+
+def test_spmv_of_an_empty_matrix(card):
+    """No rows: nothing launches; rows but no entries: zeros."""
+    ip = torch.zeros(1, dtype=torch.int32, device="cuda")
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    a = spmv_mod.CsrMatrix(ip, empty, torch.zeros(0, device="cuda"), 0, 5)
+    assert tuple(spmv_mod.spmv(a, torch.ones(5, device="cuda")).shape) == (0,)
+    a = spmv_mod.CsrMatrix(torch.zeros(4, dtype=torch.int32, device="cuda"),
+                           empty, torch.zeros(0, device="cuda"), 3, 5)
+    y = spmv_mod.spmv(a, torch.ones(5, device="cuda"))
+    assert y.tolist() == [0.0, 0.0, 0.0]
+
+
+def test_spmv_plan_is_the_launchers(card):
+    """lapis_spmv_plan is the Python twin's plan (kernels/spmv.py::
+    spmv_plan) for every tiling the checks admit."""
+    for rows, rb, rw, al in itertools.product(
+            (1, 5, 1000, 1_465_137), (1, 8, 64, 128, 256, 1000, 1466),
+            (1, 2, 3, 4, 5, 8, 9, 16, 24, 31, 32), (True, False)):
+        assert spmv_mod.c_plan(rows, rb, rw, al) == \
+            spmv_mod.spmv_plan(rows, rb, rw, al), (rows, rb, rw, al)
+
+
+def test_spmv_sass_streams_and_gathers_with_cache_policies(card):
+    """Every SpMV kernel streams its columns and values marked evict-first
+    in L1 (the spelling cuobjdump prints for them), and the vector kernels
+    load the columns by 16 bytes."""
+    import re
+
+    from repro_torch.kernels import _build
+    parts = re.split(r"Function : (\S+)", _build.sass(spmv_mod.spmv_kernel()))
+    fns = {n: b for n, b in zip(parts[1::2], parts[2::2])
+           if "lapis_spmv_kernel" in n}
+    assert len(fns) == 2 * 6 * 2     # f32/bf16 x 1..32 lanes x vec 4/1
+    for n, body in fns.items():
+        for spelling in SPMV_POLICY_LOADS:
+            assert spelling in body, (n, spelling)
+        if "Li4ELi2EE" in n:         # the 16-byte path (V = 4, U = 2)
+            assert "LDG.E.EF.128.CONSTANT" in body, n
+
+
+# how cuobjdump (CUDA 12.8 / 12.9, sm_90a) spells the SpMV kernels'
+# streaming loads: ld.global.nc.L1::evict_first is LDG.E.EF...CONSTANT;
+# the x gather's L2 evict-last policy rides in the memory descriptor
+# (desc[URn]) and has no mnemonic of its own
+SPMV_POLICY_LOADS = ("LDG.E.EF.",)
 
 
 def test_sparse_kernels_refuse_ell_on_the_card(card, rng):
@@ -811,11 +902,17 @@ def test_rwkv6_kernel_reads_strided_inputs(card, rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,d", [(2, 16, 32), (2, 29, 48), (2, 64, 128),
                                    (4, 2040, 4096), (4, 1, 4096),
-                                   (3, 11, 4099)])
+                                   (3, 11, 4099), (2, 3, 256), (2, 4, 256),
+                                   (2, 5, 256), (2, 127, 4096),
+                                   (2, 128, 4096), (2, 129, 4096),
+                                   (2, 300, 4099), (1, 2040, 256),
+                                   (3, 0, 64)])
 def test_rglru_kernel_matches_plain(card, rng, b, t, d, dtype, with_state):
-    """The sweep shapes of tests/test_kernels.py and recurrentgemma-9b's
+    """The sweep shapes of tests/test_kernels.py, recurrentgemma-9b's
     prefill (4 x 2040 tokens, 4096 channels) and decode step (T = 1 from
-    the cached h)."""
+    the cached h); T one below, at and above a segment (4 steps) and a
+    chunk (128 steps at D = 4096); D = 4099 off the vector over several
+    chunks; a long T over few channels (the chain of chunks); T = 0."""
     x, r, i = (_randn(rng, (b, t, d), dtype=dtype) for _ in range(3))
     la = _randn(rng, (d,), dtype=dtype)
     h0 = _randn(rng, (b, d)) if with_state else None
@@ -829,6 +926,83 @@ def test_rglru_kernel_matches_plain(card, rng, b, t, d, dtype, with_state):
     tol = _TOL[dtype]
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_with_decays_near_one(card, rng, dtype):
+    """log_a very negative: a_t near 1 (about 0.9995), so h sums many
+    small steps over T = 2040 and the end h each chunk hands the next
+    carries most of it."""
+    b, t, d = 2, 2040, 256
+    x, r, i = (_randn(rng, (b, t, d), dtype=dtype) for _ in range(3))
+    la = (_randn(rng, (d,), 0.5) - 9.0).to(dtype)
+    h0 = _randn(rng, (b, d))
+    y, h = rg_mod.rglru_scan(x, r, i, la, h0)
+    want_y, want_h = ref.rglru_scan(x, r, i, la, h0)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_reads_a_base_off_the_vector(card, rng, dtype):
+    """x, r, i one element (2 or 4 bytes) into their buffers: the scalar
+    path over several chunks."""
+    b, t, d = 2, 300, 256
+    bufs = [_randn(rng, (b * t * d + 1,), dtype=dtype) for _ in range(3)]
+    x, r, i = (u[1:].view(b, t, d) for u in bufs)
+    assert x.data_ptr() % 16
+    la = _randn(rng, (d,), dtype=dtype)
+    h0 = _randn(rng, (b, d))
+    y, h = rg_mod.rglru_scan(x, r, i, la, h0)
+    want_y, want_h = ref.rglru_scan(x, r, i, la, h0)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+def test_rglru_kernel_is_deterministic(card, rng):
+    """The chunks hand each other their end h in a fixed order: two calls
+    give the same bits."""
+    x, r, i = (_randn(rng, (4, 2040, 4096), dtype=torch.bfloat16)
+               for _ in range(3))
+    la = _randn(rng, (4096,), dtype=torch.bfloat16)
+    y1, h1 = rg_mod.rglru_scan(x, r, i, la)
+    y2, h2 = rg_mod.rglru_scan(x, r, i, la)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_rglru_plan_is_the_launchers(card):
+    """lapis_rglru_plan is the Python twin's plan (kernels/rglru.py::
+    rglru_plan), on this card's SM count too."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, t, d in itertools.product((1, 4, 7), (0, 1, 2, 3, 4, 5, 17, 127,
+                                                 128, 129, 2040, 4096),
+                                     (8, 33, 48, 256, 4096, 4099)):
+        for dtype, al, sm in itertools.product(
+                (torch.float32, torch.bfloat16), (True, False), (1, 132, sms)):
+            assert rg_mod.c_plan(b, t, d, dtype, sm, al) == \
+                rg_mod.rglru_plan(b, t, d, dtype, sm, al), (b, t, d, dtype)
+
+
+def test_rglru_sass_has_16_byte_loads_and_no_spills(card):
+    """Every kernel (bf16 and f32; 2 or 4 vectors, or 1-8 scalars, a
+    thread) touches no local memory (LDL / STL), and the vector kernels
+    copy their x, r and i into the shared-memory ring by 16-byte cp.async
+    (LDGSTS.E.BYPASS.128)."""
+    import re
+
+    from repro_torch.kernels import _build
+    parts = re.split(r"Function : (\S+)", _build.sass(rg_mod.rglru_kernel()))
+    fns = {n: b for n, b in zip(parts[1::2], parts[2::2])
+           if "lapis_rglru_kernel" in n}
+    vec = {n: b for n, b in fns.items()
+           if "__nv_bfloat16Li8E" in n or "IfLi4E" in n}
+    assert len(fns) == 2 * (2 + 4) and len(vec) == 4
+    for n, body in fns.items():
+        assert not re.search(r"\b(?:LDL|STL)\b", body), n
+    for n, body in vec.items():
+        assert "LDGSTS.E.BYPASS.128" in body, n
 
 
 def test_scan_kernels_refuse_what_they_do_not_take(card, rng):
