@@ -19,8 +19,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (LDG.E.128) and no local memory (LDL / STL), every RG-LRU kernel
    (``rglru.cu``) no local memory, its vector kernels 16-byte cp.async into
    their shared ring (LDGSTS.E.BYPASS.128),
-   and every SpMV kernel (``spmv.cu``) its evict-first stream loads
-   (LDG.E.EF..., 16 bytes on the vector path);
+   every SpMV kernel (``spmv.cu``) its evict-first stream loads
+   (LDG.E.EF..., 16 bytes on the vector path), every f32 flash kernel
+   (``flash_attention.cu``, D = 16 ... 256) LDGSTS (``cp.async``), every
+   WKV kernel (``rwkv6.cu``) HMMA (``mma.sync``, 3xTF32), and every f32
+   flash and WKV kernel no local memory;
 2. hold each kernel against its plain torch version on the card at the
    shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
    block at its published widths; SpMV and SpMM on the sparse test
@@ -69,7 +72,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bf16 on the wgmma kernel and f32 on the FFMA one; each timed in bf16
    beside its bound, its plain version and one library call
    (``F.rms_norm``, ``F.scaled_dot_product_attention``), and the FFMA
-   flash kernel in f32 at the same shape beside SDPA in f32; the bf16
+   flash kernel in f32 at the same shape and at recurrentgemma-9b's 4 x
+   16 / 1 heads x 2040 x 256 (window 2048) beside SDPA in f32, with its
+   launch plan (the C plan held to its Python twin) and the card's
+   blocks an SM; the bf16
    decode kernel's mean |error| against an f64 evaluation at most twice
    the plain version's (it rounds P to bf16 before P.V);
 8. serving qwen2-1.5b at its published widths (28 layers, seeded bf16
@@ -94,15 +100,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    attention over its 2048-slot ring (with the same f64 error gate as
    phase 7); each timed in bf16 beside its bound, its plain version and,
    for attention, SDPA (no one torch call computes a scan), the RG-LRU
-   scan also at the decode step (4 x 1 x 4096 from a given state), each
-   with its launch plan (the C plan held to its Python twin);
+   scan also at the decode step (4 x 1 x 4096 from a given state), the
+   WKV scan also in f32 and at extreme decays (w in [0, 1e-6], w = 0,
+   w = 1, from a given state), each with its launch plan (the C plan
+   held to its Python twin);
 10. serving rwkv6-3b at its published widths (32 layers, seeded bf16
     weights): ``repro_torch.launch.serve.main`` (the wave loop) over 8
     requests in waves of 4, 512-token prompts, 32 new tokens, through
     the WKV scan and RMSNorm with no plain-version call; prefill ms,
     the decode step's host and device time, its launches per kernel and
-    RMSNorm's device ms per step, and every request's greedy tokens at
-    f32 compute on the ``cuda`` target against ``torch``, exactly;
+    RMSNorm's device ms per step, the WKV scan's device ms per wave
+    prefill (profiler), and every request's greedy tokens at f32 compute
+    on the ``cuda`` target against ``torch``, exactly;
 11. the same for recurrentgemma-9b (38 layers, 9.4 B parameters) over 4
     requests of 2040 + 32 tokens, so decode crosses the ring's wrap at
     2048, through the RG-LRU scan, flash attention (head dim 256,
@@ -490,6 +499,27 @@ def main() -> int:
                  f"{want}")
         return want
 
+    def ffma_flash_plan(d_: int) -> dict:
+        """The f32 flash kernel's launch plan for head dim ``d_``
+        (kernels/flash_attention.py::ffma_plan), failing unless the
+        library's C plan is the same; with the blocks an SM the card
+        holds."""
+        want = fa.ffma_plan(d_)
+        got = fa.c_ffma_plan(d_)
+        if got != want:
+            fail(f"lapis_flash_f32_plan({d_}) = {got}, its twin {want}")
+        return dict(want, resident=fa.ffma_occupancy(d_))
+
+    def wkv_plan(b_: int, t_: int, h_: int, k_: int, v_: int, dtype) -> dict:
+        """The WKV scan's launch plan (kernels/rwkv6.py::wkv_plan),
+        failing unless the library's C plan is the same."""
+        want = rw.wkv_plan(b_, t_, h_, k_, v_, dtype)
+        got = rw.c_plan(b_, t_, h_, k_, v_, dtype)
+        if got != want:
+            fail(f"lapis_rwkv6_plan({b_}, {t_}, {h_}, {k_}, {v_}) = {got}, "
+                 f"its twin {want}")
+        return want
+
     def row_plan_line(p: dict) -> str:
         return (f"{p['path']} path: {p['tpr']} threads a row x {p['vpt']} "
                 f"vectors of {p['vec']}, {p['rows_per_block']} rows a block "
@@ -687,6 +717,32 @@ def main() -> int:
           + ", ".join(f"{k} {v}" for k, v in sorted(collections.Counter(
               re.findall(r"LDG\.E[A-Z0-9.]*", "".join(sp_fns.values())))
               .items())), flush=True)
+    # the f32 flash kernels stage Q, K and V by cp.async (LDGSTS); they and
+    # every WKV kernel keep everything in registers (no LDL / STL)
+    fa32_fns = {n: b for n, b in sass_functions(
+        _build.sass(fa.flash_attention_kernel())).items()
+        if "lapis_flash_f32_kernel" in n}
+    wkv_fns = {n: b for n, b in sass_functions(
+        _build.sass(rw.rwkv6_kernel())).items()
+        if "lapis_rwkv6_kernel" in n}
+    if len(fa32_fns) != 16 or len(wkv_fns) != 24:
+        fail(f"flash_attention.cu SASS has {len(fa32_fns)} f32 kernels (want "
+             f"16), rwkv6.cu {len(wkv_fns)} (want 24)")
+    for n, body in fa32_fns.items():
+        if "LDGSTS" not in body:
+            fail(f"flash_attention.cu {n} SASS has no LDGSTS")
+    for n, body in wkv_fns.items():   # the products on mma.sync (3xTF32)
+        if "HMMA" not in body:
+            fail(f"rwkv6.cu {n} SASS has no HMMA")
+    for n, body in {**fa32_fns, **wkv_fns}.items():
+        if re.search(r"\b(?:LDL|STL)\b", body):
+            fail(f"{n} SASS touches local memory (LDL/STL)")
+    print(f"flash_attention.cu SASS: {len(fa32_fns)} f32 kernels, "
+          f"{sum(b.count('LDGSTS') for b in fa32_fns.values())} LDGSTS, no "
+          f"LDL/STL; rwkv6.cu SASS: {len(wkv_fns)} kernels, "
+          f"{sum(b.count('HMMA') for b in wkv_fns.values())} HMMA, "
+          f"{sum(b.count('LDGSTS') for b in wkv_fns.values())} LDGSTS, no "
+          "LDL/STL", flush=True)
     print(f"decode_attention.cu SASS: {len(checks) - len(small_fns)} "
           f"kernels, {sum(b.count('HMMA') for b in da_fns.values())} HMMA "
           f"(mma.sync), {sum(b.count('LDGSTS') for b in da_fns.values())} "
@@ -1373,13 +1429,43 @@ def main() -> int:
     t_l = time_ms(lambda: F.scaled_dot_product_attention(
         q32, k32, v32, is_causal=True, enable_gqa=True))
     b_ms, b_by = bound(2 * bytes_n, ops_n, PEAK_FP32_PER_S)
-    print(f"  flash_attention_f32 (FFMA) 1x{heads}/{kv_heads}x{s_dec}x{hd} "
-          f"causal f32: {t_k:.4f} ms (plain {t_p:.4f}, SDPA {t_l:.4f}, bound "
-          f"{b_ms:.4f} by {b_by} at the FP32 peak; "
-          f"{ops_n / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+    fplan = ffma_flash_plan(hd)
+    print(f"  flash_attention_f32 (FFMA; plan {fplan}) 1x{heads}/{kv_heads}x"
+          f"{s_dec}x{hd} causal f32: {t_k:.4f} ms (plain {t_p:.4f}, SDPA "
+          f"{t_l:.4f}, bound {b_ms:.4f} by {b_by} at the FP32 peak, "
+          f"{b_ms / t_k:.0%} of it; {ops_n / t_k / 1e9:.1f} TFLOP/s)",
+          flush=True)
     add_row("flash_attention_f32", t_k, t_p, t_l, ops_n, 2 * bytes_n)
     flash_stats["qwen2_f32"] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                                "bound_ms": b_ms}
+                                "bound_ms": b_ms, "plan": fplan}
+    # and at recurrentgemma-9b's local attention (D = 256, window 2048),
+    # the f32 path of its greedy-token runs
+    del q32, k32, v32
+    rg_c = get_config("recurrentgemma-9b")
+    q32 = rand_t((RG_BATCH, rg_c.n_heads, RG_PROMPT, rg_c.head_dim),
+                 torch.float32)
+    k32 = rand_t((RG_BATCH, rg_c.n_kv_heads, RG_PROMPT, rg_c.head_dim),
+                 torch.float32)
+    v32 = rand_t((RG_BATCH, rg_c.n_kv_heads, RG_PROMPT, rg_c.head_dim),
+                 torch.float32)
+    t_k = time_ms(lambda: fa.flash_attention(q32, k32, v32,
+                                             window=rg_c.window))
+    t_p = time_ms(lambda: ref.attention(q32, k32, v32, window=rg_c.window))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, enable_gqa=True))   # S <= window
+    pairs_rg = RG_PROMPT * (RG_PROMPT + 1) / 2.0
+    ops_rg = 4.0 * pairs_rg * RG_BATCH * rg_c.n_heads * rg_c.head_dim
+    bytes_rg = 4.0 * (2 * q32.numel() + k32.numel() + v32.numel())
+    b_rg, b_rg_by = bound(bytes_rg, ops_rg, PEAK_FP32_PER_S)
+    fplan = ffma_flash_plan(rg_c.head_dim)
+    print(f"  flash_attention_f32 (FFMA; plan {fplan}) {RG_BATCH}x"
+          f"{rg_c.n_heads}/{rg_c.n_kv_heads}x{RG_PROMPT}x{rg_c.head_dim} "
+          f"window {rg_c.window} f32: {t_k:.4f} ms (plain {t_p:.4f}, SDPA "
+          f"{t_l:.4f}, bound {b_rg:.4f} by {b_rg_by}, {b_rg / t_k:.0%} of "
+          f"it; {ops_rg / t_k / 1e9:.1f} TFLOP/s)", flush=True)
+    flash_stats["recurrentgemma_f32"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_rg,
+        "plan": fplan}
     for name in ("rmsnorm", "decode_attention", "flash_attention"):
         rows[name]["peak"] = PEAK_BF16_PER_S
     del q, kc, vc, qf, kf, vf, mask, q32, k32, v32
@@ -1570,12 +1656,14 @@ def main() -> int:
     rw_b, rw_t = RWKV_BATCH, RWKV_PROMPT
     rg_b, rg_t, ring = RG_BATCH, RG_PROMPT, rg_cfg.window
 
-    def rwkv_inputs(dtype, b=rw_b, t=rw_t, h=rw_h, k=rw_k, state=False):
-        """r, k, v (scaled normals), w in [0.97, 0.999) (rwkv6-3b's decays
-        sit near 1), u, and an optional f32 state."""
+    def rwkv_inputs(dtype, b=rw_b, t=rw_t, h=rw_h, k=rw_k, state=False,
+                    w_range=(0.97, 0.999)):
+        """r, k, v (scaled normals), w in [lo, hi) (rwkv6-3b's decays sit
+        near 1 at the seeded weights), u, and an optional f32 state."""
         r_, k_, v_ = (rand_t((b, t, h, k), dtype, 0.5) for _ in range(3))
-        w_ = (0.97 + 0.029 * torch.rand((b, t, h, k), generator=gen,
-                                        device=dev)).to(dtype)
+        lo, hi = w_range
+        w_ = (lo + (hi - lo) * torch.rand((b, t, h, k), generator=gen,
+                                          device=dev)).to(dtype)
         u_ = rand_t((h, k), dtype, 0.1)
         s_ = rand_t((b, h, k, k), torch.float32, 0.5) if state else None
         return r_, k_, v_, w_, u_, s_
@@ -1628,6 +1716,14 @@ def main() -> int:
                          ref.rglru_scan(*ins), tol_y,
                          f"rglru_scan {rg_b}x{rg_t}x{rg_d} {tag} "
                          f"{'given' if state else 'zero'} state")
+        # decays a trained model reaches: underflowed (exp(-exp(x)) below
+        # 1e-6, and 0) and none (w = 1, the state only grows)
+        for w_range in ((0.0, 1e-6), (0.0, 0.0), (1.0, 1.0)):
+            ins = rwkv_inputs(dtype, state=True, w_range=w_range)
+            compare_pair("rwkv6_scan", rw.rwkv6_scan(*ins),
+                         ref.rwkv6_scan(*ins), tol_y,
+                         f"rwkv6_scan {rw_b}x{rw_t}x{rw_h}x{rw_k} {tag} "
+                         f"decays in {list(w_range)}, given state")
         ins = rglru_inputs(dtype, t=1, state=True)
         compare_pair("rglru_scan", rg.rglru_scan(*ins), ref.rglru_scan(*ins),
                      tol_y, f"rglru_scan decode step {rg_b}x1x{rg_d} {tag}")
@@ -1666,6 +1762,7 @@ def main() -> int:
     # times in bf16, the serving dtype, at the prefill / decode shapes
     recurrent_kernel_stats = {}
     ins = rwkv_inputs(bf)[:5]
+    wplan = wkv_plan(rw_b, rw_t, rw_h, rw_k, rw_k, bf)
     t_k = time_ms(lambda: rw.rwkv6_scan(*ins))
     t_p = time_ms(lambda: ref.rwkv6_scan(*ins))
     n_in = rw_b * rw_t * rw_h * rw_k
@@ -1674,12 +1771,26 @@ def main() -> int:
     # c_t = sum_k r u k (3 K) and y += v c_t (2 V), with K = V
     ops_n = n_in * (5.0 * rw_k + 5.0)
     b_ms, b_by = bound(bytes_n, ops_n, PEAK_FP32_PER_S)
-    print(f"  rwkv6_scan {rw_b}x{rw_t}x{rw_h}x{rw_k} bf16: {t_k:.4f} ms "
-          f"(plain {t_p:.4f}, no library call, bound {b_ms:.6f} by {b_by}: "
+    print(f"  rwkv6_scan {rw_b}x{rw_t}x{rw_h}x{rw_k} bf16 (plan {wplan}): "
+          f"{t_k:.4f} ms (plain {t_p:.4f}, no library call, bound "
+          f"{b_ms:.6f} by {b_by}, {b_ms / t_k:.0%} of it: "
           f"{bytes_n / 1e6:.1f} MB, {ops_n / 1e9:.2f} GFLOP f32)", flush=True)
     add_row("rwkv6_scan", t_k, t_p, 0.0, ops_n, bytes_n)
     recurrent_kernel_stats["rwkv6_scan"] = {"ms": t_k, "plain_ms": t_p,
-                                            "bound_ms": b_ms}
+                                            "bound_ms": b_ms, "plan": wplan}
+    # the same scan in f32 (the greedy-token runs' compute), the bound
+    # counting 4-byte inputs
+    ins = rwkv_inputs(torch.float32)[:5]
+    wplan = wkv_plan(rw_b, rw_t, rw_h, rw_k, rw_k, torch.float32)
+    t_k = time_ms(lambda: rw.rwkv6_scan(*ins))
+    t_p = time_ms(lambda: ref.rwkv6_scan(*ins))
+    b_32, b_32by = bound(2.0 * bytes_n - 4.0 * rw_b * rw_h * rw_k ** 2,
+                         ops_n, PEAK_FP32_PER_S)
+    print(f"  rwkv6_scan {rw_b}x{rw_t}x{rw_h}x{rw_k} f32 (plan {wplan}): "
+          f"{t_k:.4f} ms (plain {t_p:.4f}, bound {b_32:.6f} by {b_32by}, "
+          f"{b_32 / t_k:.0%} of it)", flush=True)
+    recurrent_kernel_stats["rwkv6_scan_f32"] = {
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b_32, "plan": wplan}
     ins = rglru_inputs(bf)[:4]
     plan = rglru_plan(rg_b, rg_t, rg_d, bf)
     t_k = time_ms(lambda: rg.rglru_scan(*ins))
@@ -1819,6 +1930,7 @@ def main() -> int:
         stats["prefill_device_busy_ms"] = busy
         stats["prefill_top_kernels_ms"] = top
         stats["prefill_rglru_ms"] = rms_ms(by_name, "lapis_rglru")
+        stats["prefill_rwkv6_ms"] = rms_ms(by_name, "lapis_rwkv6")
         print(f"  wave prefill of {batch} x {plen} tokens (bf16): "
               f"{stats['prefill_ms']:.2f} ms (median of 3, host clock, "
               f"synchronized); device busy {busy:.2f} ms (profiler)",
@@ -1827,6 +1939,9 @@ def main() -> int:
             f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
         if "rglru_scan" in need:
             print(f"    RG-LRU (lapis_rglru*): {stats['prefill_rglru_ms']:.4f} "
+                  "ms per prefill (profiler)", flush=True)
+        if "rwkv6_scan" in need:
+            print(f"    WKV (lapis_rwkv6*): {stats['prefill_rwkv6_ms']:.4f} "
                   "ms per prefill (profiler)", flush=True)
         tok = torch.argmax(logits[:, :cfg_a.vocab_size], -1).to(torch.int32)
 

@@ -14,9 +14,14 @@ kernels, each with its own launch count beside the total:
   the model's (B, S, H, D) → (B, H, S, D) transposes cost no copy; an
   operand TMA cannot address (:func:`tma_ready`) is copied to fresh
   contiguous storage first and still goes to the kernel.
-* **f32** → ``csrc/flash_attention.cu`` (``launches_ffma``): FFMA tiles
-  staged in shared memory as f32, held to the f32 bars (2e-4 against the
-  plain version, exact greedy tokens) that tensor cores cannot meet.
+* **f32** → ``csrc/flash_attention.cu`` (``launches_ffma``): FFMA
+  register micro-tiles (8 query rows × 4 keys up to D = 128) fed by
+  16-byte shared loads, K and V tiles by ``cp.async`` while the tile
+  before computes, two 128-thread blocks an SM up to D = 128
+  (:func:`ffma_plan`), the longest causal walks dispatched first; held
+  to the f32 bars (2e-4 against the plain version, exact greedy tokens)
+  that tensor cores cannot meet.  It reads 16-byte aligned operands in
+  place (:func:`async_ready`) and copies any other view first.
 
 Both take GQA (KV head h // (Hq / Hkv)), causal and sliding-window masks
 (rectangular causal aligned top-left, as ``ref.attention``), Sq != Skv
@@ -37,8 +42,14 @@ import torch
 from repro_torch.kernels import _build, ref
 
 MAX_HEAD_DIM = 256       # head dims 16, 32, ..., 256
-MAX_BATCH_HEADS = 65535  # the f32 kernel's grid.y limit
+MAX_BATCH_HEADS = 65535  # what both launchers take
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt in to
+SM_SMEM = 233_472        # shared memory of an SM (228 KB)
+BLOCK_RESERVED = 1_024   # shared memory the card reserves for each block
+# the f32 kernel's launch plan (csrc/flash_attention.cu)
+FFMA_BLOCK_Q = FFMA_BLOCK_KV = 64
+FFMA_PLAN_FIELDS = ("threads", "rows", "block_q", "block_kv", "smem_bytes",
+                    "blocks_per_sm")
 # the bf16 kernel's launch plan (csrc/flash_attention_sm90.cu)
 SM90_BLOCK_Q = 128
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
@@ -78,6 +89,54 @@ def sm90_plan(d: int) -> dict:
         + 8 * (1 + 3 * stages)
     return {"block_q": SM90_BLOCK_Q, "block_kv": bkv, "stages": stages,
             "padded_dim": dp, "smem_bytes": smem}
+
+
+def ffma_plan(d: int) -> dict:
+    """The f32 kernel's launch for head dim ``d``, as its launcher
+    computes it (the twin of ``plan`` in ``csrc/flash_attention.cu``):
+    128 threads of 8 query rows up to D = 128, 256 of 4 above; 64-query
+    and 64-key tiles; shared memory for Q, one K and one V tile and P
+    (no padding); and the blocks an SM's shared memory holds (the card's
+    registers may allow fewer: :func:`ffma_occupancy`)."""
+    threads, rows = (128, 8) if d <= 128 else (256, 4)
+    smem = 4 * (FFMA_BLOCK_Q * d + 2 * FFMA_BLOCK_KV * d
+                + FFMA_BLOCK_KV * FFMA_BLOCK_Q)
+    fit = min(SM_SMEM // (smem + BLOCK_RESERVED), 2048 // threads)
+    return {"threads": threads, "rows": rows, "block_q": FFMA_BLOCK_Q,
+            "block_kv": FFMA_BLOCK_KV, "smem_bytes": smem,
+            "blocks_per_sm": fit}
+
+
+def c_ffma_plan(d: int) -> dict:
+    """The plan the f32 library's ``lapis_flash_f32_plan`` computes, in
+    :func:`ffma_plan`'s form (builds the library)."""
+    fn = _build.load(flash_attention_kernel()).lapis_flash_f32_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(FFMA_PLAN_FIELDS))()
+    _build.check(fn(d, ctypes.cast(out, ctypes.c_void_p)),
+                 f"lapis_flash_f32_plan({d})")
+    return dict(zip(FFMA_PLAN_FIELDS, out))
+
+
+def ffma_occupancy(d: int) -> int:
+    """Blocks of the f32 kernel for head dim ``d`` an SM holds at once,
+    as the card's occupancy calculator gives them (needs the card)."""
+    fn = _build.load(flash_attention_kernel()).lapis_flash_f32_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    _build.check(fn(d, ctypes.byref(out)), f"lapis_flash_f32_occupancy({d})")
+    return out.value
+
+
+def async_ready(t: torch.Tensor) -> bool:
+    """Can the f32 kernel's 16-byte ``cp.async`` copies read this
+    (B, H, S, D) operand in place?  The head dim contiguous, the base
+    16-byte aligned and every (batch, head, position) stride a multiple
+    of 4 elements."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and \
+        all(s % 4 == 0 for s in _map_strides(t))
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -153,7 +212,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     else:
-        q, k, v = (t if t.stride(3) == 1 else t.contiguous()
+        q, k, v = (t if async_ready(t) else
+                   t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     fn = _launcher(q.dtype)
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)

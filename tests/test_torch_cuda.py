@@ -619,7 +619,10 @@ def test_decode_attention_sass_has_hmma_and_ldgsts(card):
     (4, 2, 130, 70, True, None, 64, None),
     (16, 1, 2040, 2040, True, 2048, 256, None),
     (16, 1, 300, 300, True, 100, 256, None),
-    (4, 2, 97, 97, True, None, 192, 30.0)])
+    (4, 2, 97, 97, True, None, 192, 30.0),
+    (4, 2, 200, 200, True, None, 128, None),
+    (2, 1, 130, 130, True, None, 256, None),
+    (3, 3, 1, 70, True, None, 48, None)])
 def test_flash_attention_kernel_matches_plain(card, rng, hq, hkv, sq, skv,
                                               causal, window, d, softcap,
                                               dtype):
@@ -711,6 +714,49 @@ def test_flash_attention_sm90_sass_has_wgmma_and_tma(card):
     from repro_torch.kernels import _build
     text = _build.sass(fa_mod.flash_attention_sm90_kernel())
     assert "HGMMA" in text and "UTMALDG" in text
+
+
+def test_flash_attention_f32_plan_is_the_launchers(card):
+    """The f32 kernel's plan (threads, rows, tiles, shared memory, blocks
+    an SM by shared memory) is the CUDA launcher's own for every head
+    dim, and the card holds two blocks an SM up to D = 128."""
+    for d in range(16, 257, 16):
+        p = fa_mod.ffma_plan(d)
+        assert fa_mod.c_ffma_plan(d) == p, d
+        occ = fa_mod.ffma_occupancy(d)
+        assert 1 <= occ <= p["blocks_per_sm"], (d, occ)
+        if d <= 128:
+            assert occ >= 2, (d, occ)
+
+
+def test_flash_attention_f32_sass_has_ldgsts_and_no_spills(card):
+    """Every f32 kernel (D = 16 ... 256) stages Q, K and V by cp.async
+    (LDGSTS) and touches no local memory (LDL / STL)."""
+    import re
+
+    from repro_torch.kernels import _build
+    parts = re.split(r"Function : (\S+)", _build.sass(fa_mod.flash_attention_kernel()))
+    fns = {n: b for n, b in zip(parts[1::2], parts[2::2])
+           if "lapis_flash_f32_kernel" in n}
+    assert len(fns) == 16
+    for n, body in fns.items():
+        assert "LDGSTS" in body, n
+        assert not re.search(r"\b(?:LDL|STL)\b", body), n
+
+
+def test_flash_attention_f32_copies_misaligned_views(card, rng):
+    """A view cp.async cannot read in place (a base 4 bytes off 16-byte
+    alignment) is copied first and still launches the f32 kernel, with
+    the bits of the contiguous copy."""
+    n = 2 * 4 * 70 * 64
+    flat = _randn(rng, (n + 1,))
+    q = flat[1:].view(2, 4, 70, 64)
+    k = _randn(rng, (2, 2, 70, 64))
+    v = _randn(rng, (2, 2, 70, 64))
+    assert not fa_mod.async_ready(q) and fa_mod.async_ready(k)
+    got = _flash_launch(q, k, v)
+    torch.testing.assert_close(got, _flash_launch(q.contiguous(), k, v),
+                               rtol=0, atol=0)
 
 
 def _attention_f64(q, k, v, *, causal=True, window=None):
@@ -858,14 +904,17 @@ def _scan_tensors(rng, shapes, dtype, w_range=None):
     (2, 16, 3, 8, 16, (0.5, 0.9)), (2, 37, 3, 8, 16, (0.5, 0.9)),
     (2, 64, 3, 8, 16, (0.5, 0.9)), (3, 9, 2, 100, 48, (0.5, 0.9)),
     (4, 512, 40, 64, 64, (0.97, 0.999)), (1, 70, 2, 128, 256, (0.5, 0.9)),
-    (2, 9, 2, 16, 5, (0.5, 0.9))])
+    (2, 9, 2, 16, 5, (0.5, 0.9)), (2, 130, 3, 64, 64, (0.0, 1e-6)),
+    (2, 130, 3, 64, 64, (0.0, 0.0)), (2, 130, 3, 64, 64, (1.0, 1.0)),
+    (2, 65, 3, 40, 100, (0.0, 1e-6)), (1, 33, 2, 32, 64, (1.0, 1.0))])
 def test_rwkv6_kernel_matches_plain(card, rng, b, t, h, k, v, w_range, dtype,
                                    with_state):
     """The sweep shapes of tests/test_kernels.py, the rwkv6-3b prefill's
     (4 x 512 tokens, 40 heads x 64, decays near 1), the largest state the
-    wrapper takes (K 128 x V 256: 1024 threads a block) and a block of
-    fewer than 32 threads (V 5), from zeros or a given state, the final
-    state included."""
+    wrapper takes (K 128 x V 256: four slices of 64 columns), V 5 (one
+    slice, mostly padding), and extreme decays over several chunks (w in
+    [0, 1e-6], w = 0, w = 1; K and V off the 16-byte rows), from zeros or
+    a given state, the final state included."""
     r, kk, vv, w, u = _scan_tensors(
         rng, [(b, t, h, k), (b, t, h, k), (b, t, h, v), (b, t, h, k),
               (h, k)], dtype, w_range)
@@ -882,6 +931,49 @@ def test_rwkv6_kernel_matches_plain(card, rng, b, t, h, k, v, w_range, dtype,
     tol = _TOL[dtype]
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)
+
+
+def test_rwkv6_kernel_gives_the_same_bits_twice(card, rng):
+    """The chunks' chain has a fixed order: two calls give the same bits,
+    at the prefill's shape in bf16 and over many chunks in f32."""
+    for shape, dtype in (((4, 512, 40, 64, 64), torch.bfloat16),
+                         ((2, 1000, 3, 64, 64), torch.float32)):
+        b, t, h, k, v = shape
+        ins = _scan_tensors(rng, [(b, t, h, k), (b, t, h, k), (b, t, h, v),
+                                  (b, t, h, k), (h, k)], dtype, (0.97, 0.999))
+        s0 = _randn(rng, (b, h, k, v))
+        y1, s1 = rw_mod.rwkv6_scan(*ins, s0)
+        y2, s2 = rw_mod.rwkv6_scan(*ins, s0)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_rwkv6_plan_is_the_launchers(card):
+    """The wrapper's plan (state rows, chunks, slices, tickets, shared
+    memory) is the CUDA launcher's own."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, h, k, v in ((4, 512, 40, 64, 64), (1, 1, 2, 5, 7),
+                              (2, 0, 3, 16, 16), (3, 33, 2, 100, 48),
+                              (1, 70, 2, 128, 256), (2, 17, 3, 8, 16)):
+            assert rw_mod.c_plan(b, t, h, k, v, dtype) == \
+                rw_mod.wkv_plan(b, t, h, k, v, dtype), (b, t, h, k, v, dtype)
+
+
+def test_rwkv6_sass_has_ldgsts_and_no_spills(card):
+    """Every kernel (f32 and bf16; 16, 32, 64, 128 state rows; chunks of
+    1, 2, 4 sub-chunks) copies its inputs by cp.async (LDGSTS), runs its
+    products on the tensor cores (HMMA: mma.sync in 3xTF32) and touches no
+    local memory (LDL / STL)."""
+    import re
+
+    from repro_torch.kernels import _build
+    parts = re.split(r"Function : (\S+)", _build.sass(rw_mod.rwkv6_kernel()))
+    fns = {n: b for n, b in zip(parts[1::2], parts[2::2])
+           if "lapis_rwkv6_kernel" in n}
+    assert len(fns) == 2 * 4 * 3
+    for n, body in fns.items():
+        assert "LDGSTS" in body and "HMMA" in body, n
+        assert not re.search(r"\b(?:LDL|STL)\b", body), n
 
 
 def test_rwkv6_kernel_reads_strided_inputs(card, rng):
