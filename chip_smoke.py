@@ -20,14 +20,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (``rglru.cu``) no local memory, its vector kernels 16-byte cp.async into
    their shared ring (LDGSTS.E.BYPASS.128),
    every SpMV kernel (``spmv.cu``) its evict-first stream loads
-   (LDG.E.EF..., 16 bytes on the vector path), every f32 flash kernel
+   (LDG.E.EF..., 16 bytes on the vector path), every SpMM kernel
+   (``spmm.cu``) evict-first stream loads and no local memory, its vector
+   kernels 16-byte B gathers (LDG.E.128), every f32 flash kernel
    (``flash_attention.cu``, D = 16 ... 256) LDGSTS (``cp.async``), every
    WKV kernel (``rwkv6.cu``) HMMA (``mma.sync``, 3xTF32), and every f32
    flash and WKV kernel no local memory;
-2. hold each kernel against its plain torch version on the card at the
+2. fail unless every generated region library (``codegen.py`` around
+   ``block_map.cuh``: one flat map kernel each) loads by 16 bytes
+   (LDG.E.128) and touches no local memory; hold each kernel against its
+   plain torch version on the card at the
    shapes the paths give it (mlp demo, ragged, gemv, the qwen2-1.5b MLP
-   block at its published widths; SpMV and SpMM on the sparse test
-   matrices, one with trailing empty rows; the paged gather on the demo
+   block at its published widths, each nest's launch plan printed and its
+   C plan held to its Python twin; SpMV and SpMM on the sparse test
+   matrices, one with trailing empty rows, against the plain versions
+   evaluated in f64; the paged gather on the demo
    shapes; ResNet18's (8, 1000) softmax), with stated tolerances — the
    gather exactly; the row softmax timed at the mlp demo's (8, 10) and
    ResNet18's (8, 1000) beside ``torch.softmax``, its launch plan (the
@@ -44,7 +51,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    module compiled for the library (``target="torch"``); then the same
    block in bf16 (3 gemms on the ``wgmma`` route, 2 nests); each gemm's
    route and launch plan printed, and the three gemms timed in f32 and in
-   bf16 beside ``torch.matmul``;
+   bf16 beside ``torch.matmul``; the two nests timed in f32 and in bf16
+   (the bf16 ones held within 2^-8 of their row's largest value) beside
+   their plain versions and, for the residual add, ``torch.add``;
 5. SpMV at the paper's Table 6.1 sizes: synthetic CSR matrices with the
    published rows, mean and max nonzeros per row of StocF-1465,
    PFlow_742, Elasticity3D and audikw_1 (Poisson row lengths, uniform
@@ -54,7 +63,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (``torch.sparse_csr_tensor @ x``) and the x gather alone
    (``x.index_select(0, cols)``, the practical ceiling), its launch plan
    printed (the C plan held to its Python twin); then SpMM of PFlow_742
-   by 16 dense columns beside ``torch.sparse.mm``;
+   by 16 dense columns beside ``torch.sparse.mm`` and
+   ``F.embedding_bag`` (the same CSR product in one call), its launch
+   plan printed (the C plan held to its Python twin), two calls bitwise
+   equal;
 6. the paged decode step at qwen2-1.5b's KV widths (2 KV heads, head dim
    128, block 16, f32), 64 slots × 4096 positions: ``page_append`` →
    ``page_gather`` compiled for ``target="cuda"``, exactly equal to the
@@ -135,7 +147,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     with TF32 off on both): the gemm, nest and softmax kernels launched
     and no plain call, the probabilities equal to rtol 1e-3 / atol 1e-6
     with the same top-1 classes and rows summing to 1, each target within
-    1e-3 of an f64 evaluation, both calls timed, the §4.3 DualView
+    1e-3 of an f64 evaluation, both calls timed (and the 17 nests'
+    device ms per call from the profiler), the §4.3 DualView
     ablation (host weights: h2d + d2h of one call, lazy against eager),
     and the fc gemm (8 x 512 x 1000, f32, split-K) alone beside
     ``torch.matmul``, its plan printed and two calls bitwise equal;
@@ -489,6 +502,31 @@ def main() -> int:
                  f"{want}")
         return want
 
+    def map_plan(region, args, shape) -> dict:
+        """A nest's launch plan (kernels/generic.py::map_plan) for fresh
+        (aligned) operands, failing unless its library's C plan is the
+        same."""
+        n_el = int(np.prod(shape))
+        its = [a.element_size() for a in args] + [args[0].element_size()]
+        lib = generic.region_library(region, [a.dtype for a in args],
+                                     args[0].dtype)
+        want = generic.map_plan(n_el, its, True, sms)
+        got = generic.c_map_plan(lib, n_el, its, True, sms)
+        if got != want:
+            fail(f"lapis_map_plan({n_el}) = {got}, its twin {want}")
+        return want
+
+    def spmm_plan(n_rows: int, n_: int, tiling: dict, item: int) -> dict:
+        """SpMM's launch plan (kernels/spmm.py::spmm_plan) for aligned
+        operands, failing unless the library's C plan is the same."""
+        rb, _ = spmv_mod.check_tiling(tiling)
+        want = spmm_mod.spmm_plan(n_rows, n_, rb, item)
+        got = spmm_mod.c_plan(n_rows, n_, rb, item)
+        if got != want:
+            fail(f"lapis_spmm_plan({n_rows}, {n_}, {rb}) = {got}, its twin "
+                 f"{want}")
+        return want
+
     def rglru_plan(b_: int, t_: int, d_: int, dtype) -> dict:
         """The RG-LRU scan's launch plan (kernels/rglru.py::rglru_plan) on
         this card, failing unless the library's C plan is the same."""
@@ -710,6 +748,27 @@ def main() -> int:
         if "LDG.E.EF." not in body or ("Li4ELi2EE" in n and
                                        "LDG.E.EF.128.CONSTANT" not in body):
             fail(f"spmv.cu {n} SASS lacks its evict-first stream loads")
+    # SpMM: every kernel streams its columns and values evict-first and
+    # keeps everything in registers; the vector kernels gather B's rows by
+    # 16 bytes
+    spmm_fns = {n: b for n, b in sass_functions(
+        _build.sass(spmm_mod.spmm_kernel())).items()
+        if "lapis_spmm_kernel" in n}
+    spmm_vec = {n: b for n, b in spmm_fns.items() if "Li1ELi8EE" not in n}
+    if len(spmm_fns) != 24 or len(spmm_vec) != 12:
+        fail(f"spmm.cu SASS has {len(spmm_fns)} kernels ({len(spmm_vec)} "
+             "vector), want 24 (12)")
+    for n, body in spmm_fns.items():
+        if "LDG.E.EF." not in body or re.search(r"\b(?:LDL|STL)\b", body):
+            fail(f"spmm.cu {n} SASS lacks its evict-first stream loads or "
+                 "touches local memory")
+    for n, body in spmm_vec.items():
+        if "LDG.E.128" not in body:
+            fail(f"spmm.cu {n} SASS gathers no 16-byte vector (LDG.E.128)")
+    print(f"spmm.cu SASS: {len(spmm_fns)} kernels, no LDL/STL, loads "
+          + ", ".join(f"{k} {v}" for k, v in sorted(collections.Counter(
+              re.findall(r"LDG\.E[A-Z0-9.]*", "".join(spmm_fns.values())))
+              .items())), flush=True)
     print(f"rglru.cu SASS: {len(rg_fns)} kernels, no LDL/STL, "
           f"{sum(b.count('LDGSTS.E.BYPASS.128') for b in rg_vec.values())} "
           "LDGSTS.E.BYPASS.128 (cp.async into the ring); spmv.cu SASS: "
@@ -777,6 +836,19 @@ def main() -> int:
                        .astype(np.float32))
 
     print("phase 2: kernels vs plain versions on the card", flush=True)
+    # every generated region library (one map kernel each) loads by 16
+    # bytes and keeps everything in registers
+    region_srcs = [ks for ks in dict.fromkeys(sources) if ks.name == "region"]
+    for ks in region_srcs:
+        fns = sass_functions(_build.sass(ks))
+        if len(fns) != 1:
+            fail(f"a region library has {len(fns)} kernels, want 1")
+        for n, body in fns.items():
+            if "LDG.E.128" not in body or re.search(r"\b(?:LDL|STL)\b",
+                                                      body):
+                fail(f"region kernel {n} SASS: no LDG.E.128, or LDL/STL")
+    print(f"region SASS: {len(region_srcs)} generated libraries, each one "
+          "map kernel with LDG.E.128 and no LDL/STL", flush=True)
     gemms = [op for op in demo_mod.graph.ops if op.opname == "kk.gemm"]
     for op in gemms:
         (m, k), (_, n) = (o.type.shape for o in op.operands)
@@ -823,6 +895,9 @@ def main() -> int:
         else:
             region = op.regions[0] if op.regions else \
                 generic.one_op_region(op)
+            mp = map_plan(region, args, shape)
+            label += (f" (plan {mp['vec']} a vector x {mp['unroll']}, "
+                      f"{mp['grid']} x {mp['threads']}, tail {mp['tail']})")
             got = generic.block_map_region(region, args, shape, "float32",
                                            block=block_shape)
             compare("block_map_region", got, refs.region_ref(region)(*args),
@@ -839,10 +914,12 @@ def main() -> int:
                                on_card(dense[nz_r, nz_c].astype(np.float32)),
                                *dense.shape)
         xv, bm = randn(dense.shape[1]), randn(dense.shape[1], SPMM_COLS)
-        compare("spmv", spmv_mod.spmv(a, xv), spmv_mod.spmv_reference(a, xv),
-                1e-5, f"spmv {label}")
+        a64 = a._replace(values=a.values.double())
+        compare("spmv", spmv_mod.spmv(a, xv),
+                spmv_mod.spmv_reference(a64, xv.double()).float(), 1e-5,
+                f"spmv {label}")
         compare("spmm", spmm_mod.spmm_sparse(a, bm),
-                spmv_mod.spmm_reference(a, bm), 1e-5,
+                spmv_mod.spmm_reference(a64, bm.double()).float(), 1e-5,
                 f"spmm {label} x {SPMM_COLS}")
     (demo_spmv,) = [op for op in slice2_mods["spmv"].graph.ops
                     if op.opname == "kk.spmv"]
@@ -1027,7 +1104,7 @@ def main() -> int:
                                "route": plan["route"], "ms": t_k,
                                "plain_ms": t_p, "library_ms": t_l,
                                "bound_ms": b_ms})
-    softmax_stats = []
+    softmax_stats, nest_stats = [], []
     for name, label, op, args, region, on_block in nest_ins:
         shape = op.results[0].type.shape
         n_el = float(np.prod(shape))
@@ -1066,6 +1143,10 @@ def main() -> int:
             softmax_stats.append({"shape": list(shape), "plan": sp,
                                   "ms": t_k, "plain_ms": t_p,
                                   "library_ms": t_l, "bound_ms": b_ms})
+        else:
+            nest_stats.append({"nest": label, "dtype": "float32",
+                               "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                               "bound_ms": b_ms})
         if on_block or name == "row_softmax":
             r["ms"] += t_k
             r["plain_ms"] += t_p
@@ -1074,6 +1155,48 @@ def main() -> int:
                                else r["library_ms"] + t_l)
             r["ops"] += ops_n
             r["bytes"] += bytes_n
+    # the bf16 block's two nests (silu.mul, the residual add): held to the
+    # plain version in f32 within 2^-8 of the row's largest value (f32
+    # inside, one rounding), timed beside it and torch.add
+    for op in mod16.graph.ops:
+        if op.opname != "kokkos.team_parallel" or op.attrs["kind"] != "map":
+            continue
+        shape = op.results[0].type.shape
+        n_el = float(np.prod(shape))
+        region = op.regions[0] if op.regions else generic.one_op_region(op)
+        args = [randn(*o.type.shape).bfloat16() for o in op.operands]
+        block_shape = op.attrs["tiling"]["block"]
+        mp = map_plan(region, args, shape)
+        got = generic.block_map_region(region, args, shape, "bfloat16",
+                                       block=block_shape)
+        want = refs.region_ref(region)(*[a.float() for a in args])
+        torch.cuda.synchronize()
+        err = float(((got.float() - want).abs()
+                     - 2.0 ** -8 * want.abs().amax(-1, keepdim=True)).max())
+        label = (" -> ".join(op.attrs.get("ops", (op.attrs["src"],)))
+                 + f" {'x'.join(map(str, shape))} bf16")
+        if err > 0 or not bool(torch.isfinite(got).all()):
+            fail(f"block_map_region {label} exceeds 2^-8 of its row's "
+                 f"largest value by {err:.3e}")
+        worst["block_map_region"] = max(
+            worst["block_map_region"],
+            float((got.float() - want.to(torch.bfloat16).float()).abs().max()))
+        t_k = time_ms(lambda: generic.block_map_region(
+            region, args, shape, "bfloat16", block=block_shape))
+        t_p = time_ms(lambda: refs.region_ref(region)(*args))
+        t_l = (time_ms(lambda: torch.add(*args))
+               if [s_.opname for s_ in region.ops] == ["linalg.add"]
+               else None)
+        b_ms, b_by = bound(2.0 * n_el * (len(args) + 1), n_el)
+        print(f"  block_map_region {label} (plan {mp['vec']} a vector x "
+              f"{mp['unroll']}, {mp['grid']} x {mp['threads']}): {t_k:.4f} "
+              f"ms (plain {t_p:.4f}, library "
+              f"{'n/a' if t_l is None else f'{t_l:.4f}'}, bound {b_ms:.6f} "
+              f"by {b_by}); within 2^-8 of the row's largest value",
+              flush=True)
+        nest_stats.append({"nest": label, "dtype": "bfloat16", "ms": t_k,
+                           "plain_ms": t_p, "library_ms": t_l,
+                           "bound_ms": b_ms})
 
     # ---------------------------------------------------------------- 5
     print("phase 5: SpMV at Table 6.1 sizes (synthetic CSR, full rows)",
@@ -1162,16 +1285,40 @@ def main() -> int:
     t_call = time_ms(lambda: mmod(ip, cols, vals, bv), with_host=True)
     t_p = time_ms(lambda: spmv_mod.spmm_reference(a, bv))
     t_l = time_ms(lambda: torch.sparse.mm(lib_a, bv))
+    # the same CSR product as one embedding_bag (a yardstick, never called
+    # by the port): B's rows by column index, weighted by the values,
+    # summed over each row's offsets
+    def bag():
+        return torch.nn.functional.embedding_bag(
+            cols, bv, ip, mode="sum", per_sample_weights=vals,
+            include_last_offset=True)
+    y_bag = bag()
+    bag_err = float((yb - y_bag).abs().max()) / float(y_bag.abs().max())
+    if not bag_err <= 1e-4:
+        fail(f"spmm and F.embedding_bag differ by {bag_err:.3e} of max|Y|")
+    del y_bag
+    t_bag = time_ms(bag)
+    two = spmm_mod.spmm_sparse(a, bv, tiling=tiling)
+    if not torch.equal(two, spmm_mod.spmm_sparse(a, bv, tiling=tiling)):
+        fail("spmm: two calls differ in their bits")
+    del two
     ops_n = 2.0 * nnz * SPMM_COLS
     bytes_n = 8.0 * nnz + 4.0 * (n + 1) + 8.0 * n * SPMM_COLS
     b_ms, b_by = bound(bytes_n, ops_n)
-    print(f"  spmm tiling {tiling}: kernel {t_k:.4f} ms, call "
-          f"{t_call:.4f} ms, plain {t_p:.4f}, torch.sparse.mm "
-          f"{t_l:.4f}, bound {b_ms:.4f} by {b_by}", flush=True)
+    mplan = spmm_plan(n, SPMM_COLS, tiling, 4)
+    print(f"  spmm tiling {tiling} (plan {mplan['lanes']} lanes x "
+          f"{mplan['vec']} columns, {mplan['groups']} groups, unroll "
+          f"{mplan['unroll']}, {mplan['threads']} threads, grid "
+          f"{mplan['grid_rows']} x {mplan['grid_cols']}): kernel {t_k:.4f} "
+          f"ms, call {t_call:.4f} ms, plain {t_p:.4f}, torch.sparse.mm "
+          f"{t_l:.4f}, F.embedding_bag {t_bag:.4f}, bound {b_ms:.4f} by "
+          f"{b_by}; two calls bitwise equal; vs F.embedding_bag "
+          f"{bag_err:.1e} of max|Y|", flush=True)
     add_row("spmm", t_k, t_p, t_l, ops_n, bytes_n)
     spmm_stats = {"matrix": SPMM_MATRIX, "cols": SPMM_COLS, "tiling": tiling,
-                  "kernel_ms": t_k, "call_ms": t_call, "plain_ms": t_p,
-                  "library_ms": t_l, "bound_ms": b_ms}
+                  "plan": mplan, "kernel_ms": t_k, "call_ms": t_call,
+                  "plain_ms": t_p, "library_ms": t_l,
+                  "embedding_bag_ms": t_bag, "bound_ms": b_ms}
     del bv, yb, ip, cols, vals, a, lib_a
     torch.cuda.empty_cache()
 
@@ -2194,10 +2341,12 @@ def main() -> int:
     del rn_w64, probs64
     rn_ms = time_ms(lambda: rn_mod(xr), with_host=True)
     rn_lib_ms = time_ms(lambda: rn_lib(xr), with_host=True)
-    rn_busy, rn_top, _ = device_busy(lambda: rn_mod(xr))
+    rn_busy, rn_top, rn_by = device_busy(lambda: rn_mod(xr))
+    rn_nest_ms = rms_ms(rn_by, "map_kernel")
     print(f"  compiled call: cuda target {rn_ms:.4f} ms, torch target "
           f"{rn_lib_ms:.4f} ms (with the host's share); cuda device busy "
-          f"{rn_busy:.4f} ms (profiler)", flush=True)
+          f"{rn_busy:.4f} ms (profiler), of it the 17 nests "
+          f"{rn_nest_ms:.4f} ms", flush=True)
     print("    largest kernels (ms per call): " + "; ".join(
         f"{nm[:60]} {t:.4f}" for nm, t in rn_top), flush=True)
     # §4.3 DualView ablation (benchmarks/resnet_bench.py): weights on the
@@ -2244,7 +2393,8 @@ def main() -> int:
           f"{fc_bound:.6f} by {fc_by}); bitwise equal over calls: {stable}",
           flush=True)
     resnet_stats = {"ms": rn_ms, "library_ms": rn_lib_ms,
-                    "device_busy_ms": rn_busy, "launches": launched,
+                    "device_busy_ms": rn_busy, "nests_device_ms": rn_nest_ms,
+                    "launches": launched,
                     "max_abs_err": err, "max_rel_err": rel_pair,
                     "rel_err_vs_f64": {"cuda": rel_cuda, "torch": rel_torch},
                     "dualview": ablation,
@@ -2366,6 +2516,7 @@ def main() -> int:
                       "flash_attention": flash_stats,
                       "decode_attention": decode_stats,
                       "rmsnorm": rms_stats, "row_softmax": softmax_stats,
+                      "nests": nest_stats,
                       "serve_rwkv6_3b": rwkv_stats,
                       "serve_recurrentgemma_9b": rg_stats,
                       "batched": batched_stats, "resnet18": resnet_stats,

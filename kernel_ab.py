@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the f32 flash kernel and the RWKV6 WKV scan of one checkout, at
-serving shapes that ``chip_smoke.py`` of an older checkout may not time,
-so that two commits can be set side by side on one card:
+"""Time kernels of one checkout at shapes that ``chip_smoke.py`` of an
+older checkout may not time, so that two commits can be set side by side
+on one card:
 
     python3 kernel_ab.py [ROOT]      # ROOT: a checkout (default: this one)
 
@@ -14,7 +14,18 @@ busy before each call, median of 15) of
   256, window 2048, beside SDPA in f32 (``is_causal``; S <= window);
 * the WKV scan at rwkv6-3b's prefill, 4 x 512 x 40 x 64, in f32 and bf16
   (decays in [0.97, 0.999)), and the wrapper's host microseconds a call
-  (40 calls enqueued back to back, median of 5).
+  (40 calls enqueued back to back, median of 5);
+* the qwen2-1.5b MLP block's two mapped nests at T = 2048 (silu.mul
+  2048 x 8960, the residual add 2048 x 1536) in f32 and bf16 through
+  ``block_map_region`` at the tiling the pass gives them, beside
+  ``torch.add``;
+* SpMM of a synthetic PFlow_742 (742,793 rows, Poisson(50) entries a row
+  clipped to [1, 137], uniform columns) by 16 columns in f32 and bf16,
+  beside ``torch.sparse.mm`` and ``F.embedding_bag`` (the same CSR
+  product in one call) in f32; then in f32 with the same row lengths but
+  columns drawn from the first 100,000 and 371,000 rows of B (B of 6.4
+  and 23.7 MB against 47.5), which shows how much of SpMM's time is B
+  missing the 50 MB L2.
 
 Needs a CUDA card: exits 2 without one.
 """
@@ -95,6 +106,60 @@ def main() -> int:
             host.append((time.perf_counter() - t0) / 40 * 1e6)
         torch.cuda.synchronize()
         out[f"wkv_{tag}_host_us_per_call"] = statistics.median(host)
+    del r_, k_, v_, w_, u_
+
+    from repro_torch.core import ops, pipeline
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.tracer import TensorSpec
+    from repro_torch.kernels import generic
+    from repro_torch.kernels import spmm as sm
+    from repro_torch.kernels import spmv as sv
+    for name, fn, shape in (("silu_mul", lambda g, u: ops.silu(g) * u,
+                             (2048, 8960)),
+                            ("add", lambda a, b: a + b, (2048, 1536))):
+        spec = TensorSpec(shape, "float32")
+        mod = pipeline.compile(fn, spec, spec,
+                               options=CompileOptions(target="cuda"))
+        (op,) = [o for o in mod.graph.ops
+                 if o.opname == "kokkos.team_parallel"]
+        region = op.regions[0] if op.regions else generic.one_op_region(op)
+        block = op.attrs["tiling"]["block"]
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            a_, b_ = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            out[f"{name}_{tag}_ms"] = time_ms(
+                lambda: generic.block_map_region(region, [a_, b_], shape,
+                                                 dtype, block=block))
+            if name == "add":
+                out[f"torch_add_{tag}_ms"] = time_ms(lambda: torch.add(a_,
+                                                                       b_))
+    n = 742_793
+    lens = torch.poisson(torch.full((n,), 50.0, device=dev),
+                         generator=gen).clamp_(1, 137).to(torch.int32)
+    ip = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    ip[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
+    cols = torch.randint(0, n, (int(ip[-1]),), generator=gen, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn(cols.shape, generator=gen, device=dev)
+    bv = randn(n, 16)
+    tiling = sv.default_tiling(n, int(cols.numel()))
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        a = sv.CsrMatrix(ip, cols, vals.to(dtype), n, n)
+        b_ = bv.to(dtype)
+        out[f"spmm_{tag}_ms"] = time_ms(
+            lambda: sm.spmm_sparse(a, b_, tiling=tiling))
+    lib_a = torch.sparse_csr_tensor(ip, cols, vals, size=(n, n))
+    out["sparse_mm_f32_ms"] = time_ms(lambda: torch.sparse.mm(lib_a, bv))
+    out["embedding_bag_f32_ms"] = time_ms(
+        lambda: F.embedding_bag(cols, bv, ip, mode="sum",
+                                per_sample_weights=vals,
+                                include_last_offset=True))
+    for rows in (100_000, 371_000):
+        a = sv.CsrMatrix(ip, torch.randint(0, rows, cols.shape, generator=gen,
+                                           device=dev, dtype=torch.int32),
+                         vals, n, rows)
+        b_ = bv[:rows].contiguous()
+        out[f"spmm_f32_b{rows}_ms"] = time_ms(
+            lambda: sm.spmm_sparse(a, b_, tiling=tiling))
     print(json.dumps(out), flush=True)
     return 0
 

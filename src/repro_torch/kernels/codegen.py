@@ -5,8 +5,9 @@ elementwise sub-op records whose block arguments mirror the owning op's
 operands.  :func:`functor_source` spells that list as one C++ functor,
 one expression per sub-op, every intermediate a local ``float`` (so it
 lives in registers).  :func:`kernel_source` wraps the functor in the
-hand-written skeleton of ``csrc/block_map.cuh`` with typed loads and
-stores and an ``extern "C"`` launcher.  This mirrors what LAPIS itself
+hand-written skeleton of ``csrc/block_map.cuh`` (a flat grid-stride
+stream of 16-byte vectors) with a body of typed vector loads and stores
+and an ``extern "C"`` launcher.  This mirrors what LAPIS itself
 does: emit C++ from the IR (the reference's ``core/translate.py`` spells
 the same vocabulary for Kokkos lambdas).
 
@@ -43,6 +44,7 @@ SPELLED = frozenset(CPP_SCALAR) | {"linalg.power"}
 # IR dtype name → the C element type the loads and stores are typed on
 C_TYPES = {"float32": "float", "bfloat16": "__nv_bfloat16",
            "float16": "__half"}
+ITEMSIZES = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
 def _expr(op, args: list) -> str:
@@ -74,10 +76,16 @@ def functor_source(region, name: str = "LapisRegion") -> str:
 
 def kernel_source(region, in_dtypes: Sequence[str], out_dtype: str) -> str:
     """A complete CUDA translation unit for ``region`` over operands of
-    ``in_dtypes`` producing ``out_dtype``: the functor, a body that loads
-    each operand at a flat index and stores the result, and the launcher
-    ``lapis_region_launch(ptrs, L, R, C, bl, br, bc, stream)`` whose
-    ``ptrs`` are the operands' data pointers followed by the output's."""
+    ``in_dtypes`` producing ``out_dtype``: the functor; a body whose
+    ``step<W, K>`` loads K raw vectors of W elements of every operand by
+    its type (all loads issued before the first value is computed), runs
+    the functor on each element in f32 and stores the results; and the
+    launcher ``lapis_region_launch(ptrs, n, stream)`` over the n
+    elements, whose ``ptrs`` are the operands' data pointers followed by
+    the output's.
+    The vector is 16 bytes of the widest of the operands and the output
+    (``csrc/block_map.cuh``); the library also exports the launch plan,
+    ``lapis_map_plan``."""
     n = len(region.inputs)
     if len(in_dtypes) != n:
         raise ValueError(f"region has {n} inputs, got {len(in_dtypes)} "
@@ -86,9 +94,15 @@ def kernel_source(region, in_dtypes: Sequence[str], out_dtype: str) -> str:
         if dt not in C_TYPES:
             raise TypeError(f"generated region kernels take "
                             f"{sorted(C_TYPES)}, not {dt}")
+    vec = 16 // max(ITEMSIZES[dt] for dt in (*in_dtypes, out_dtype))
+    in_bytes = sum(ITEMSIZES[dt] for dt in in_dtypes)
+    at = "v + k * stride"
     fields = [f"  const {C_TYPES[dt]}* in{i};"
               for i, dt in enumerate(in_dtypes)]
-    loads = ", ".join(f"lapis_load(in{i}, i)" for i in range(n))
+    vectors = [f"    lapis_map::Vec<W, {C_TYPES[dt]}> a{i}[K];"
+               for i, dt in enumerate(in_dtypes)]
+    loads = [f"      a{i}[k].load(in{i}, {at});" for i in range(n)]
+    elems = ", ".join(f"a{i}[k][e]" for i in range(n))
     casts = ", ".join(f"(const {C_TYPES[dt]}*)ptrs[{i}]"
                       for i, dt in enumerate(in_dtypes))
     ops = " -> ".join(op.opname for op in region.ops)
@@ -100,17 +114,34 @@ def kernel_source(region, in_dtypes: Sequence[str], out_dtype: str) -> str:
         "struct LapisBody {",
         *fields,
         f"  {C_TYPES[out_dtype]}* out;",
-        "  __device__ __forceinline__ void operator()(long i) const {",
-        f"    const float x[{n}] = {{{loads}}};",
-        "    lapis_store(out, i, LapisRegion{}(x));",
+        "  template <int W, int K>",
+        "  __device__ __forceinline__ void step(long long v, long long "
+        "stride, long long lim) const {",
+        *vectors,
+        "#pragma unroll",
+        "    for (int k = 0; k < K; ++k) {   // every load first",
+        f"      if ({at} >= lim) continue;",
+        *loads,
+        "    }",
+        "#pragma unroll",
+        "    for (int k = 0; k < K; ++k) {",
+        f"      if ({at} >= lim) continue;",
+        "      float y[W];",
+        "#pragma unroll",
+        "      for (int e = 0; e < W; ++e) {",
+        f"        const float x[{n}] = {{{elems}}};",
+        "        y[e] = LapisRegion{}(x);",
+        "      }",
+        f"      lapis_map::store<W>(out, {at}, y);",
+        "    }",
         "  }",
         "};",
         "",
-        'extern "C" int lapis_region_launch(void* const* ptrs, long L, '
-        "long R, long C, int bl, int br, int bc, void* stream) {",
+        'extern "C" int lapis_region_launch(void* const* ptrs, long long n, '
+        "void* stream) {",
         f"  const LapisBody body{{{casts}, "
         f"({C_TYPES[out_dtype]}*)ptrs[{n}]}};",
-        "  return lapis_launch_block_map(body, LapisTile{L, R, C, bl, br, "
-        "bc}, (cudaStream_t)stream);",
+        f"  return lapis_map::launch<LapisBody, {vec}, {in_bytes}>(body, "
+        f"ptrs, {n + 1}, n, stream);",
         "}",
         ""])

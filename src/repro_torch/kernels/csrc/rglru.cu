@@ -454,7 +454,7 @@ static int launch(const void* x, const void* r, const void* ig, const void* log_
   if (batch < 0 || batch > 65535 || t_len < 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const Plan p = plan(batch, t_len, d, (int)sizeof(T), row_reduce::aligned16(x, r, ig) &&
-                      row_reduce::aligned16(y, y, y), row_reduce::sm_count());
+                      row_reduce::aligned16(y, y, y), lapis_sm_count());
   const long long warps = p.threads / 32 > 0 ? p.threads / 32 : 1;
   if (p.grid > 2147483647LL || p.threads > THREADS || p.lanes * p.vec > THREADS ||
       (p.segs > 1 && warps * p.lanes * p.vec > MAX_PAIRS))

@@ -109,7 +109,7 @@ static int launch(const void* x, const void* w, void* out, long rows, int d, flo
   if (rows < 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   const row_reduce::Plan p = rms_plan(rows, d, (int)sizeof(T),
-                                      row_reduce::aligned16(x, w, out), row_reduce::sm_count());
+                                      row_reduce::aligned16(x, w, out), lapis_sm_count());
   const cudaStream_t st = (cudaStream_t)stream;
   if (p.path == row_reduce::GENERAL) {
     const unsigned grid = (unsigned)(rows < 2147483647L ? rows : 2147483647L);

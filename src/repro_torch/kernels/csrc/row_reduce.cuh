@@ -86,17 +86,6 @@ inline int write_plan(const Plan& p, long long* out) {
   return 0;
 }
 
-// The current device's SM count, asked once per device.
-inline int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < 64 && cached[dev]) return cached[dev];
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  if (dev >= 0 && dev < 64) cached[dev] = n;
-  return n;
-}
-
 inline bool aligned16(const void* a, const void* b, const void* c) {
   return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15u) == 0;
 }

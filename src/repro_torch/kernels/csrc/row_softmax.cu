@@ -130,7 +130,7 @@ static int lapis_row_softmax_launch(const void* x, void* y, long rows, int cols,
   if (rows < 0 || cols < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0 || cols == 0) return 0;
   const row_reduce::Plan p = softmax_plan(rows, cols, (int)sizeof(T),
-                                          row_reduce::aligned16(x, y, y), row_reduce::sm_count());
+                                          row_reduce::aligned16(x, y, y), lapis_sm_count());
   const cudaStream_t st = (cudaStream_t)stream;
   if (p.path == row_reduce::GENERAL) {
     const unsigned grid = (unsigned)(rows < 2147483647L ? rows : 2147483647L);

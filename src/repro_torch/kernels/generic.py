@@ -2,14 +2,16 @@
 reference's ``kernels/generic.py`` (``block_map`` / ``block_map_region``).
 
 The map_parallelism pass binds a logical league/team/vector nest onto the
-H100 hierarchy (grid/block/warp) and picks ``tiling["block"]``.  Two
-kernels run the nests:
+H100 hierarchy (grid/block/warp) and picks ``tiling["block"]``; neither
+kernel's launch follows it.  Two kernels run the nests:
 
 * :func:`block_map_region` — a map nest, fused (a ``kokkos.fused`` region)
   or not (a one-op region made by :func:`one_op_region`), as a CUDA kernel
   generated from the region (``kernels/codegen.py``) around the
-  hand-written skeleton ``csrc/block_map.cuh``.  Generated libraries are
-  built by nvcc at first use and cached by the hash of their source.
+  hand-written skeleton ``csrc/block_map.cuh``: a flat stream of 16-byte
+  vectors walked by a grid sized to the card, launched by the plan
+  :func:`map_plan` mirrors.  Generated libraries are built by nvcc at
+  first use and cached by the hash of their source.
 * :func:`row_softmax` — a ``kind='reduce'`` nest (last-axis softmax) on
   the fixed ``csrc/row_softmax.cu``: rows read once into registers by
   16-byte loads, launched by the plan :func:`softmax_plan` mirrors.
@@ -21,7 +23,6 @@ tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Sequence
 
 import torch
@@ -49,15 +50,54 @@ def one_op_region(op: Op) -> Region:
     return Region(inputs=args, ops=[sub], outputs=[sub.results[0]])
 
 
-def _tile(shape: tuple, block: tuple) -> tuple:
-    """(L, R, C) view of the iteration space and (bl, br, bc) tile."""
-    shape = tuple(shape) or (1,)
-    block = tuple(min(int(b), s) or 1 for b, s in zip(block or shape, shape))
-    padded = (1, 1) + shape
-    pblock = (1, 1) + block
-    L = math.prod(padded[:-2])
-    bl = math.prod(pblock[:-2])
-    return (L, padded[-2], padded[-1]), (bl, pblock[-2], pblock[-1])
+MAP_THREADS = 256        # a block of the map kernel (csrc/block_map.cuh)
+MAP_BLOCKS_PER_SM = 4    # resident blocks the grid is sized to
+MAP_MAX_UNROLL = 4       # most vectors of every operand in flight a thread
+MAP_INFLIGHT_BYTES = 128  # loaded bytes a thread holds a step
+MAP_PLAN_FIELDS = ("vec", "unroll", "threads", "grid", "vectors", "tail")
+
+
+def map_plan(n: int, itemsizes: Sequence[int], aligned: bool,
+             sm_count: int) -> dict:
+    """The launch of a mapped nest over ``n`` elements whose operands,
+    then output, have ``itemsizes`` bytes an element — the twin of
+    ``plan`` in ``csrc/block_map.cuh`` (exported from every generated
+    library as ``lapis_map_plan``).  A thread takes ``vec`` elements a
+    step, 16 bytes of the widest (1 where some base is off 16 bytes: not
+    ``aligned``), ``unroll`` vectors of every operand at a time (as many
+    as ``MAP_INFLIGHT_BYTES`` of loaded operands hold, 1 to
+    ``MAP_MAX_UNROLL``); ``grid`` blocks of ``threads``, at most
+    ``MAP_BLOCKS_PER_SM`` an SM, walk the ``vectors`` by a grid-stride
+    loop; the last ``tail`` elements (``n`` mod ``vec``) take scalar
+    loads in the same launch."""
+    vec = 16 // max(itemsizes) if aligned else 1
+    unroll = min(max(MAP_INFLIGHT_BYTES // (vec * sum(itemsizes[:-1])), 1),
+                 MAP_MAX_UNROLL)
+    vectors = n // vec
+    grid = -(-vectors // (MAP_THREADS * unroll))
+    if grid < 1 and n > 0:
+        grid = 1
+    return dict(vec=vec, unroll=unroll, threads=MAP_THREADS,
+                grid=min(grid, sm_count * MAP_BLOCKS_PER_SM),
+                vectors=vectors, tail=n - vectors * vec)
+
+
+def c_map_plan(lib, n: int, itemsizes: Sequence[int], aligned: bool,
+               sm_count: int) -> dict:
+    """The plan a generated library's exported ``lapis_map_plan``
+    computes, in :func:`map_plan`'s form."""
+    fn = lib.lapis_map_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(MAP_PLAN_FIELDS))()
+    rc = fn(n, max(itemsizes), sum(itemsizes[:-1]), int(aligned), sm_count,
+            out)
+    if rc != 0:
+        raise ValueError(f"lapis_map_plan({n}, {max(itemsizes)}): "
+                         f"error {rc}")
+    return dict(zip(MAP_PLAN_FIELDS, out))
 
 
 _REGION_LIBS: dict = {}     # (region, in dtypes, out dtype) -> CDLL
@@ -70,13 +110,33 @@ def region_kernel(region, in_dtypes: Sequence[str],
         "region", codegen.kernel_source(region, in_dtypes, out_dtype))
 
 
+def region_library(region, in_dtypes: Sequence[torch.dtype],
+                   out_dtype: torch.dtype) -> ctypes.CDLL:
+    """The generated library for ``region`` over operands of
+    ``in_dtypes`` producing ``out_dtype``, built at first use."""
+    key = (region, tuple(in_dtypes), out_dtype)
+    lib = _REGION_LIBS.get(key)
+    if lib is None:
+        lib = _REGION_LIBS[key] = _build.load(region_kernel(
+            region, [dtype_name(d) for d in in_dtypes],
+            dtype_name(out_dtype)))
+        lib.lapis_region_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong,
+            ctypes.c_void_p]
+        lib.lapis_region_launch.restype = ctypes.c_int
+    return lib
+
+
 def block_map_region(region, args: Sequence[torch.Tensor], out_shape: tuple,
                      out_dtype, *, block: tuple) -> torch.Tensor:
-    """Execute a whole region as ONE blocked kernel: block arguments bind
-    to the operands, every sub-op runs on values held in registers, and
-    only the yielded value is written out.  A chain of N fused
-    elementwise ops therefore costs one launch and no HBM round trips
-    for intermediates."""
+    """Execute a whole region as ONE kernel: block arguments bind to the
+    operands, every sub-op runs on values held in registers, and only the
+    yielded value is written out.  A chain of N fused elementwise ops
+    therefore costs one launch and no HBM round trips for
+    intermediates.  ``block`` is the nest's ``tiling["block"]``, kept
+    because the reference's signature has it; it does not steer the
+    launch, which :func:`map_plan` takes from the element count, the
+    dtypes, the alignment and the card."""
     out_dtype = torch_dtype(out_dtype)
     args = list(args)
     if _build.on_cpu(args, "block_map_region"):
@@ -88,24 +148,13 @@ def block_map_region(region, args: Sequence[torch.Tensor], out_shape: tuple,
                              f"{tuple(a.shape)} != iteration space "
                              f"{tuple(out_shape)}")
     args = [a.contiguous() for a in args]
-    key = (region, tuple(a.dtype for a in args), out_dtype)
-    lib = _REGION_LIBS.get(key)
-    if lib is None:
-        lib = _REGION_LIBS[key] = _build.load(region_kernel(
-            region, [dtype_name(a.dtype) for a in args],
-            dtype_name(out_dtype)))
-        lib.lapis_region_launch.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.c_long, ctypes.c_long,
-            ctypes.c_long,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.lapis_region_launch.restype = ctypes.c_int
+    lib = region_library(region, [a.dtype for a in args], out_dtype)
     out = torch.empty(tuple(out_shape), dtype=out_dtype,
                       device=args[0].device if args else "cuda")
-    (L, R, C), (bl, br, bc) = _tile(tuple(out_shape), tuple(block))
     ptrs = (ctypes.c_void_p * (len(args) + 1))(
         *[a.data_ptr() for a in args], out.data_ptr())
     _build.check(lib.lapis_region_launch(
-        ptrs, L, R, C, bl, br, bc,
+        ptrs, out.numel(),
         torch.cuda.current_stream(out.device).cuda_stream),
         "block_map_region")
     block_map_region.launches += 1

@@ -106,12 +106,32 @@ def test_generated_functor_matches_plain_region(fn, n_args, tmp_path):
 
 
 def test_kernel_source_types_loads_and_launcher():
+    """The generated unit types each operand's raw vector loads, runs the
+    functor on every element of K vectors after all their loads, and
+    launches the flat skeleton with 16 bytes of the widest type a vector
+    (4 elements where an f32 operand or output takes part, 8 where all
+    are bf16) and the operands' element sizes, which set K."""
     region = _region(_silu_mul, 2)
     src = codegen.kernel_source(region, ["float32", "bfloat16"], "float32")
     assert '#include "block_map.cuh"' in src
     assert "const float* in0;" in src and "const __nv_bfloat16* in1;" in src
     assert "lapis_silu(x[0])" in src and "(v1 * x[1])" in src
-    assert 'extern "C" int lapis_region_launch' in src
+    assert "lapis_map::Vec<W, float> a0[K];" in src
+    assert "lapis_map::Vec<W, __nv_bfloat16> a1[K];" in src
+    assert "a0[k].load(in0, v + k * stride);" in src
+    assert "a1[k].load(in1, v + k * stride);" in src
+    assert "const float x[2] = {a0[k][e], a1[k][e]};" in src
+    assert "lapis_map::store<W>(out, v + k * stride, y);" in src
+    assert src.index("a1[k].load(in1") < src.index("LapisRegion{}(x)")
+    assert 'extern "C" int lapis_region_launch(void* const* ptrs, ' \
+        'long long n, void* stream)' in src
+    # 4 elements a vector (f32 is the widest); the operands' sizes sum to 6
+    assert "lapis_map::launch<LapisBody, 4, 6>(body, ptrs, 3, n, stream);" \
+        in src
+    bf16 = codegen.kernel_source(region, ["bfloat16"] * 2, "bfloat16")
+    assert "lapis_map::launch<LapisBody, 8, 4>(body, ptrs, 3, n, stream);" \
+        in bf16
+    assert "LapisTile" not in src
     with pytest.raises(TypeError):
         codegen.kernel_source(region, ["int32", "float32"], "float32")
 

@@ -93,6 +93,99 @@ def test_generated_region_kernel_matches_plain(card, rng, shape):
                                rtol=1e-5, atol=1e-5)
 
 
+def _nest_region(fn, n_args):
+    spec = TensorSpec((8, 8), "float32")
+    mod = pipeline.compile(fn, *([spec] * n_args),
+                           options=CompileOptions(target="cuda"))
+    (nest,) = [op for op in mod.graph.ops
+               if op.opname == "kokkos.team_parallel"]
+    return nest.regions[0] if nest.regions else generic.one_op_region(nest)
+
+
+def _offset(rng, shape, dtype, offset):
+    """A contiguous view ``offset`` elements into a longer buffer: the
+    base off the 16-byte vector when offset is 1."""
+    n = int(np.prod(shape))
+    return _randn(rng, (n + offset,), dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtypes", ["f32", "bf16", "f32-bf16"])
+@pytest.mark.parametrize("shape", [(1,), (7,), (33, 130), (1001,),
+                                   (3, 5, 1100), (2048, 1536)])
+def test_map_kernel_tails_offsets_and_dtypes(card, rng, shape, dtypes,
+                                             offset):
+    """silu(g) * u over ragged tails (n mod the vector != 0), a base one
+    element off the 16-byte vector (the whole launch at V = 1), bf16, and
+    an f32 gate with a bf16 up operand into f32 (the bf16 operand read by
+    8-byte loads).  f32 is held to the plain version at 1e-5; bf16 (f32
+    inside, one rounding) to the plain version in f32 within 2^-8 of its
+    row's largest value."""
+    region = _nest_region(lambda g, u: ops.silu(g) * u, 2)
+    dt_g, dt_u = {"f32": (torch.float32,) * 2,
+                  "bf16": (torch.bfloat16,) * 2,
+                  "f32-bf16": (torch.float32, torch.bfloat16)}[dtypes]
+    g, u = _offset(rng, shape, dt_g, offset), _offset(rng, shape, dt_u, offset)
+    before = generic.block_map_region.launches
+    got = generic.block_map_region(region, [g, u], shape, dt_g,
+                                   block=(1, 1024))
+    torch.cuda.synchronize()
+    assert generic.block_map_region.launches == before + 1
+    assert got.dtype == dt_g and tuple(got.shape) == shape
+    want = region_ref(region)(g.float(), u.float())
+    if dt_g == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        row = want.abs().amax(-1, keepdim=True)
+        assert bool(((got.float() - want).abs() <= 2.0 ** -8 * row).all())
+
+
+def test_map_kernel_block_does_not_steer_the_launch(card, rng):
+    """Two tilings of the same nest: the same launch, bitwise the same
+    output."""
+    region = _nest_region(lambda a, b: a + b, 2)
+    a, b = _randn(rng, (2048, 1536)), _randn(rng, (2048, 1536))
+    y1 = generic.block_map_region(region, [a, b], (2048, 1536), "float32",
+                                  block=(1, 1024))
+    y2 = generic.block_map_region(region, [a, b], (2048, 1536), "float32",
+                                  block=(64, 128))
+    assert torch.equal(y1, y2)
+    torch.testing.assert_close(y1, a + b, rtol=0, atol=0)
+
+
+def test_map_plan_is_the_launchers(card):
+    """lapis_map_plan, built into every generated library, is the Python
+    twin's plan (kernels/generic.py::map_plan)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = generic.region_library(_nest_region(lambda a, b: a + b, 2),
+                                 [torch.float32] * 2, torch.float32)
+    for n, its, al in itertools.product(
+            (0, 1, 3, 7, 8, 1001, 4097, 2048 * 1536, 2048 * 8960, 10 ** 9),
+            ((4, 4, 4), (2, 2, 2), (4, 2, 4)), (True, False)):
+        assert generic.c_map_plan(lib, n, its, al, sms) == \
+            generic.map_plan(n, its, al, sms), (n, its, al)
+
+
+def test_map_sass_has_16_byte_loads_and_no_spills(card):
+    """Every generated region kernel (f32, bf16, a three-operand chain)
+    loads by 16 bytes and touches no local memory."""
+    import re
+
+    from repro_torch.kernels import _build
+    cases = ((lambda g, u: ops.silu(g) * u, 2, "float32"),
+             (lambda g, u: ops.silu(g) * u, 2, "bfloat16"),
+             (_chain, 3, "float32"))
+    for fn, n_args, dt in cases:
+        region = _nest_region(fn, n_args)
+        ks = generic.region_kernel(region, [dt] * len(region.inputs), dt)
+        parts = re.split(r"Function : (\S+)", _build.sass(ks))
+        assert len(parts) == 3, parts[1::2]
+        body = parts[2]
+        assert "LDG.E.128" in body, (dt, len(region.inputs))
+        assert not re.search(r"\b(?:LDL|STL)\b", body), \
+            (dt, len(region.inputs))
+
+
 # (8, 10): the mlp demo (general path); (8, 1000): ResNet18's head (a
 # block a row); (4096, 1024): a warp a row at the pass's widest; (4, 4096):
 # wider than the pass admits (general path, values re-read)
@@ -186,10 +279,19 @@ def test_spmv_and_spmm_kernels_match_plain(card, rng, case, tiling):
     torch.cuda.synchronize()
     assert (spmv_mod.spmv.launches, spmm_mod.spmm_sparse.launches) == \
         (before[0] + 1, before[1] + 1)
-    torch.testing.assert_close(y, spmv_mod.spmv_reference(a, x),
+    torch.testing.assert_close(y, _plain_f64(spmv_mod.spmv_reference, a, x),
                                rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(yb, spmv_mod.spmm_reference(a, b),
+    torch.testing.assert_close(yb, _plain_f64(spmv_mod.spmm_reference, a, b),
                                rtol=1e-5, atol=1e-5)
+
+
+def _plain_f64(plain, a, dense):
+    """The plain version evaluated in f64 (inputs cast up, the result cast
+    to the kernel's dtype): the kernels sum in a fixed order, the plain
+    CSR versions by ``index_add_``, whose atomics on the card sum in an
+    order that moves from call to call."""
+    return plain(a._replace(values=a.values.double()),
+                 dense.double()).to(dense.dtype)
 
 
 def _csr_view(a, offset):
@@ -277,6 +379,77 @@ def test_spmv_sass_streams_and_gathers_with_cache_policies(card):
 # the x gather's L2 evict-last policy rides in the memory descriptor
 # (desc[URn]) and has no mnemonic of its own
 SPMV_POLICY_LOADS = ("LDG.E.EF.",)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3, 16, 17, 40, 64])
+@pytest.mark.parametrize("case", ["lengths-0-1-345", "nnz-zero", "random",
+                                  "trailing-empty"])
+def test_spmm_kernel_widths_dtypes_and_offsets(card, rng, case, n, dtype,
+                                                offset):
+    """SpMM at n = 1 ... 64 columns (16-byte vectors where n is a multiple
+    of the vector, a lane a column where not), f32 and bf16, the columns
+    and values one entry off the vector (the scalar path), empty rows and
+    rows of 345 entries, held to the plain version evaluated in f64
+    within 1e-5 (f32) or 2^-8 (bf16: f32 accumulation, one rounding) of
+    the row's magnitude (sum of |a| |b| over its entries, plus one), the
+    bars of the SpMV test above."""
+    a = _SPARSE_CASES[case](rng)
+    a = _csr_view(a._replace(values=a.values.to(dtype)), offset)
+    b = _randn(rng, (a.n_cols, n), dtype=dtype)
+    before = spmm_mod.spmm_sparse.launches
+    y = spmm_mod.spmm_sparse(a, b, tiling={"row_block": 8, "row_width": 8})
+    torch.cuda.synchronize()
+    assert spmm_mod.spmm_sparse.launches == before + 1 and y.dtype == dtype
+    a64 = a._replace(values=a.values.double())
+    want = spmv_mod.spmm_reference(a64, b.double())
+    scale = spmv_mod.spmm_reference(a64._replace(values=a64.values.abs()),
+                                    b.double().abs())
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert bool(((y.double() - want).abs() <= tol * (scale + 1.0)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_kernel_gives_the_same_bits_twice(card, rng, dtype):
+    """The groups' sums meet in a fixed shuffle tree: two calls, the same
+    bits (rows of 0 to 345 entries, 16 and 17 columns)."""
+    a = _SPARSE_CASES["lengths-0-1-345"](rng)
+    a = a._replace(values=a.values.to(dtype))
+    for n in (16, 17):
+        b = _randn(rng, (a.n_cols, n), dtype=dtype)
+        y1 = spmm_mod.spmm_sparse(a, b)
+        y2 = spmm_mod.spmm_sparse(a, b)
+        assert torch.equal(y1, y2)
+
+
+def test_spmm_plan_is_the_launchers(card):
+    """lapis_spmm_plan is the Python twin's plan (kernels/spmm.py::
+    spmm_plan)."""
+    for rows, n, rb, item, al in itertools.product(
+            (1, 5, 1000, 742_793), (1, 2, 3, 4, 8, 16, 17, 40, 64, 128, 129,
+                                    256, 300, 1000),
+            (1, 3, 8, 256, 1000), (2, 4), (True, False)):
+        assert spmm_mod.c_plan(rows, n, rb, item, al) == \
+            spmm_mod.spmm_plan(rows, n, rb, item, al), (rows, n, rb, item, al)
+
+
+def test_spmm_sass_gathers_by_16_bytes_and_streams_evict_first(card):
+    """Every SpMM kernel streams its columns and values marked evict-first
+    (LDG.E.EF...) and touches no local memory; the vector kernels gather
+    B's rows by 16 bytes (LDG.E.128)."""
+    import re
+
+    from repro_torch.kernels import _build
+    parts = re.split(r"Function : (\S+)", _build.sass(spmm_mod.spmm_kernel()))
+    fns = {n: b for n, b in zip(parts[1::2], parts[2::2])
+           if "lapis_spmm_kernel" in n}
+    assert len(fns) == 2 * 6 * 2     # f32/bf16 x 1..32 lanes x vector/scalar
+    for n, body in fns.items():
+        assert "LDG.E.EF." in body, n
+        assert not re.search(r"\b(?:LDL|STL)\b", body), n
+        if "Li1ELi8EE" not in n:     # the vector kernels (V > 1, U = 1)
+            assert "LDG.E.128" in body, n
 
 
 def test_sparse_kernels_refuse_ell_on_the_card(card, rng):
