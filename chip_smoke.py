@@ -155,6 +155,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 14. the MALA LDOS surrogate (91 -> 400 x 3 -> 201) on 8748 points, cuda
     against torch to 1e-4 of the output's scale, one gemm launch per
     layer, both timed;
+16. (run before 15's lines) training through ``launch/train.py`` and
+    ``launch/steps.py``: first the bf16 and f32 flash kernels and
+    RMSNorm against their plain versions at the shapes this phase's
+    forward gives them (8 and 4 x 12/2 heads x 512 x 128 causal, strided
+    views; 8 and 4 x 512 x 1536 rows), phase 7's tolerances; (a)
+    qwen2-1.5b at its published widths (28
+    layers, tied 151936 vocab, seeded weights), bf16 compute over an f32
+    master with AdamW, ``train_loop`` for 6 steps of 8 x 512 tokens on
+    the ``cuda`` target: every loss finite and the last below the first,
+    exactly 28 bf16 flash and 57 RMSNorm launches a step (2 a layer and
+    the final norm) and no plain call; each step's wall ms, tokens/s and
+    model FLOPs (6 N T plus attention) over the bf16 peak, then the same
+    6 steps under the profiler for each step's device busy ms and peak
+    memory; (b) one step with ``remat_policy="nothing"`` against one
+    without from the same state: loss and gradient norm within 1e-3
+    relative, 56 flash and 113 RMSNorm launches (each layer's forward
+    runs again in the backward); the same step on ``torch`` (the plain
+    versions): loss within 1e-3 relative, gradient norm within 1e-2, and
+    the forward's logits within 3e-2 of the largest; (c) the same model
+    at f32 compute, batch 4 x 512: the forward's logits on ``cuda`` (the
+    FFMA flash kernel, RMSNorm) and ``torch`` within 1e-5 of the
+    largest, then 3 steps from one carried state on each: every loss
+    within 1e-6 relative, every gradient norm within 1e-5, side by side;
+    (d) rwkv6-3b and recurrentgemma-9b reduced, 3 steps of 4 x 64
+    at f32 compute, ``cuda`` against ``torch`` within 1e-4 relative
+    through the WKV / RG-LRU scans, flash attention and RMSNorm with no
+    plain call; (e) qwen2-1.5b reduced, 12 steps with a checkpoint every
+    4 into a temporary directory and a failure injected at step 6: one
+    restart, the latest checkpoint at step 12, and the losses of an
+    uninterrupted run to 1e-6;
 15. print the ``{"kernels": [...]}`` line (sixteen kernels: flash
     attention's bf16 and f32 kernels are two rows, and so are the bf16
     ``wgmma`` and the FFMA routes of ``kk.gemm`` and of the tiled batched
@@ -235,6 +265,12 @@ BATCHED_CASES = (((256, 16, 16), (256, 16, 16)),
 # MALA surrogate at its published widths on the paper's 8748 points
 RESNET_BATCH, RESNET_RES = 8, 224
 MALA_POINTS = 8748
+# phase 16: training qwen2-1.5b at full width (steps, batch, sequence),
+# the f32 comparison's batch, and the reduced runs' (steps, batch, seq);
+# the plain scans' backward is a Python loop over time, so T stays short
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 512
+TRAIN_F32_BATCH, TRAIN_F32_STEPS = 4, 3
+TRAIN_SMALL = (3, 4, 64)
 
 
 class KernelCount:
@@ -327,6 +363,425 @@ def small_matrices(np, rng) -> dict:
                                       rng.standard_normal((100, 80)), 0.0),
             "empty-rows 8x6": empty_rows, "dense-row 16x32": dense_row,
             "trailing-empty 300x64": trailing}
+
+
+def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
+                   reset_counts, counts, path_counts, compare) -> dict:
+    """Phase 16 (the module docstring): the training path on the card."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.models.spec import tree_map
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+
+    card = card_line()
+    stats = {}
+
+    def launches(c, *names) -> dict:
+        return {n: c[n][0] for n in names}
+
+    def no_plain(c, what) -> None:
+        if any(p for _, p in c.values()):
+            fail(f"{what}: a plain version ran on the card: {c}")
+
+    def rel(a, b) -> float:
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def logits_gap(model, params, batch) -> float:
+        """max |logits(cuda) - logits(torch)| over max |logits(torch)|:
+        the forward on both targets from the same compute tree."""
+        out = {}
+        with torch.no_grad():
+            for target in ("cuda", "torch"):
+                with use_options(CompileOptions(target=target)):
+                    out[target] = model.forward(params, batch)[0].float()
+        gap = float((out["cuda"] - out["torch"]).abs().max()) / \
+            float(out["torch"].abs().max())
+        if not bool(torch.isfinite(out["cuda"]).all()):
+            fail("the training forward's logits are not finite")
+        return gap
+
+    cfg = get_config("qwen2-1.5b")
+    L = cfg.n_layers
+
+    # (0) the path's kernels against their plain versions at the shapes
+    # the training forward gives them: flash on the projections' (B, S,
+    # H, hd) viewed as (B, H, S, hd), RMSNorm on the (B, S, d_model)
+    # stream; phase 7's tolerances (f32: summation order; bf16: an ulp or
+    # two of the output), RMSNorm's × max|plain|
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+
+    def rand_t(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    print("phase 16: the training path's kernels at its shapes", flush=True)
+    for dtype, b_, tol_att, tol_rms, fa_row in (
+            (torch.bfloat16, TRAIN_BATCH, 2e-2, 1e-2, "flash_attention"),
+            (torch.float32, TRAIN_F32_BATCH, 2e-4, 2e-5,
+             "flash_attention_f32")):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        q = rand_t((b_, TRAIN_SEQ, cfg.n_heads, cfg.head_dim),
+                   dtype).transpose(1, 2)
+        k, v = (rand_t((b_, TRAIN_SEQ, cfg.n_kv_heads, cfg.head_dim),
+                       dtype).transpose(1, 2) for _ in range(2))
+        compare(fa_row, fa.flash_attention(q, k, v, causal=True),
+                ref.attention(q, k, v, causal=True), tol_att,
+                f"flash_attention {b_}x{cfg.n_heads}/{cfg.n_kv_heads}x"
+                f"{TRAIN_SEQ}x{cfg.head_dim} causal, strided views {tag}")
+        x = rand_t((b_, TRAIN_SEQ, cfg.d_model), dtype)
+        w = rand_t((cfg.d_model,), dtype)
+        compare("rmsnorm", rn.rmsnorm(x, w), ref.rmsnorm(x, w), tol_rms,
+                f"rmsnorm {b_}x{TRAIN_SEQ}x{cfg.d_model} {tag} "
+                "(x max|plain|)", relative=True)
+        del q, k, v, x, w
+
+    # (a) qwen2-1.5b at full width, bf16 compute, f32 master, AdamW
+    hp = steps_mod.TrainHParams(
+        optimizer=OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=1),
+        remat_policy="none")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = build_model(cfg).n_params()
+    # model FLOPs a step: 6 N T for the products, and the attention
+    # scores and their use (QK^T and PV, 2 S^2 hd a head each forward,
+    # the full square: the flash kernel skips the masked half), times 3
+    attn_flops = 3 * 4 * L * TRAIN_BATCH * TRAIN_SEQ ** 2 * cfg.n_heads \
+        * cfg.head_dim
+    step_flops = 6 * n_params * tokens + attn_flops
+    print(f"phase 16: training qwen2-1.5b at full width ({n_params / 1e9:.3f}"
+          f" B parameters, bf16 compute, f32 master, AdamW): train_loop "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens on the "
+          f"cuda target", flush=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with use_options(CompileOptions(target="cuda")):
+        out = train_mod.train_loop(cfg, steps=TRAIN_STEPS,
+                                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, hp=hp,
+                                   log_every=0)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    c = path_counts["train qwen2-1.5b bf16"] = counts()
+    losses = out["losses"]
+    got = launches(c, "flash_attention", "rmsnorm")
+    want = {"flash_attention": L * TRAIN_STEPS,
+            "rmsnorm": (2 * L + 1) * TRAIN_STEPS}
+    print(f"  {wall_s:.1f} s with init; losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; launches "
+          f"{ {n: l for n, (l, _) in c.items() if l} }", flush=True)
+    no_plain(c, "bf16 training")
+    if got != want:
+        fail(f"bf16 training launched {got}, want {want} ({L} flash and "
+             f"{2 * L + 1} RMSNorm a step)")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        fail(f"bf16 training losses {losses}: want {TRAIN_STEPS} finite, "
+             "the last below the first")
+
+    # the same 6 steps (the step train_loop builds, its seed and batches)
+    # under the profiler: each step's device busy time and peak memory
+    # (torch.profiler's schedule hands over one step a trace)
+    busy, peak, by_name = [], [], []
+
+    def on_ready(prof):
+        ms = {}
+        for ev in prof.key_averages():
+            t_us = getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0))
+            if t_us > 0:
+                ms[ev.key] = t_us / 1e3
+        by_name.append(ms)
+        busy.append(sum(ms.values()))
+        peak.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    model, step = train_mod.build_trainer(cfg, hp)
+    data = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH), device=dev)
+    state = steps_mod.init_train_state(model, hp, 0, dev)
+    out_p = {"losses": [], "step_ms": []}
+    torch.cuda.reset_peak_memory_stats()
+    with use_options(CompileOptions(target="cuda")), profile(
+            activities=[ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=0, active=1,
+                              repeat=TRAIN_STEPS),
+            on_trace_ready=on_ready) as prof:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            b = {k: dv.device() for k, dv in data.batch_dualview(i).items()}
+            state, met = step(state, b)
+            out_p["losses"].append(float(met["loss"]))
+            out_p["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            prof.step()
+    torch.cuda.synchronize()
+    del model, step, state, met, b
+    if len(busy) != TRAIN_STEPS or not all(b > 0 for b in busy):
+        fail(f"the profiler gave {busy} ms of device time for "
+             f"{TRAIN_STEPS} training steps")
+    per_step = []
+    for i, ms in enumerate(out["step_ms"]):
+        row = {"wall_ms": ms, "tok_per_s": tokens / (ms / 1e3),
+               "model_flops": step_flops,
+               "bf16_peak_share": step_flops / (ms / 1e3) / PEAK_BF16_PER_S,
+               "device_busy_ms": busy[i], "peak_bytes": peak[i],
+               "profiled_wall_ms": out_p["step_ms"][i]}
+        per_step.append(row)
+        print(f"  step {i}: loss {losses[i]:.5f}, wall {ms:.1f} ms, "
+              f"{row['tok_per_s']:.0f} tok/s, {step_flops / 1e12:.2f} TFLOP "
+              f"= {row['bf16_peak_share']:.1%} of the bf16 peak; profiled "
+              f"run: device busy {busy[i]:.1f} ms of "
+              f"{out_p['step_ms'][i]:.1f} ms, peak memory "
+              f"{peak[i] / 2**30:.2f} GiB ({card})", flush=True)
+    last = by_name[-1]
+    top = sorted(last.items(), key=lambda kv: -kv[1])[:8]
+    kernel_ms = {k: sum(t for n, t in last.items() if k in n)
+                 for k in ("lapis_flash_sm90", "lapis_rmsnorm")}
+    print("  largest kernels of the last step (profiler, full names):",
+          flush=True)
+    for name, t in top:
+        print(f"    {t:.3f} ms  {name}", flush=True)
+    print(f"  the hand kernels in the last step: bf16 flash "
+          f"{kernel_ms['lapis_flash_sm90']:.3f} ms over {L} launches, "
+          f"RMSNorm {kernel_ms['lapis_rmsnorm']:.3f} ms over {2 * L + 1} "
+          f"(profiler; their backward is the plain versions')", flush=True)
+    print(f"  profiled run's losses equal the first run's: "
+          f"{out_p['losses'] == losses}", flush=True)
+    stats["qwen2_bf16"] = {"losses": losses, "steps": per_step,
+                           "top_kernels_ms": top, "hand_kernels_ms": kernel_ms,
+                           "wall_s": wall_s, "launches": got,
+                           "n_params": n_params, "tokens_per_step": tokens,
+                           "profiled_losses": out_p["losses"]}
+    torch.cuda.empty_cache()
+
+    # (b) remat: one step with and one without from the same state
+    model = build_model(cfg)
+    batch = {k: dv.device() for k, dv in SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH), device=dev).batch_dualview(0).items()}
+    state = steps_mod.init_train_state(model, hp, 0, dev)
+    remat = {}
+    for policy in ("none", "nothing"):
+        step = steps_mod.make_train_step(
+            model, dataclasses.replace(hp, remat_policy=policy))
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with use_options(CompileOptions(target="cuda")):
+            new, met = step(state, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        c = path_counts[f"train remat {policy}"] = counts()
+        no_plain(c, f"remat {policy}")
+        del new, met
+        walls = []
+        for _ in range(3):             # the steady step, after the first
+            t0 = time.perf_counter()
+            with use_options(CompileOptions(target="cuda")):
+                new, met = step(state, batch)
+            float(met["loss"])
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del new, met
+        ms = statistics.median(walls)
+        remat[policy] = {"loss": loss, "grad_norm": gnorm, "wall_ms": ms,
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "launches": launches(c, "flash_attention",
+                                              "rmsnorm")}
+        torch.cuda.empty_cache()
+    print(f"  one step without / with remat (nothing): loss "
+          f"{remat['none']['loss']:.6f} / {remat['nothing']['loss']:.6f}, "
+          f"grad norm {remat['none']['grad_norm']:.6f} / "
+          f"{remat['nothing']['grad_norm']:.6f}, steady wall (median of 3) "
+          f"{remat['none']['wall_ms']:.1f} / {remat['nothing']['wall_ms']:.1f}"
+          f" ms, peak {remat['none']['peak_bytes'] / 2**30:.2f} / "
+          f"{remat['nothing']['peak_bytes'] / 2**30:.2f} GiB, launches "
+          f"{remat['none']['launches']} / {remat['nothing']['launches']} "
+          f"({card})", flush=True)
+    if remat["none"]["launches"] != {"flash_attention": L,
+                                     "rmsnorm": 2 * L + 1} or \
+            remat["nothing"]["launches"] != {"flash_attention": 2 * L,
+                                             "rmsnorm": 4 * L + 1}:
+        fail("remat: want 28 / 57 launches without and 56 / 113 with")
+    if rel(remat["nothing"]["loss"], remat["none"]["loss"]) > 1e-3 or \
+            rel(remat["nothing"]["grad_norm"],
+                remat["none"]["grad_norm"]) > 1e-3:
+        fail("remat changed the loss or the gradient norm by more than "
+             "1e-3 relative")
+    stats["remat"] = remat
+
+    # the same bf16 step on the torch target (the plain attention and
+    # RMSNorm) from the same state, and the forward's logits on both
+    # targets: bf16 rounds each kernel's output and the plain version's
+    # apart by an ulp or two, so the limits are bf16-sized: the loss a
+    # quarter of bf16's 2^-8, the gradient norm 1e-2, the logits 3e-2 of
+    # the largest (about 8 of its ulps); a kernel that computed the wrong function (the wrong mask,
+    # scale or head map) moves the logits by their own order
+    step = steps_mod.make_train_step(model, hp)
+    with use_options(CompileOptions(target="torch")):
+        new, met = step(state, batch)
+    bf_torch = (float(met["loss"]), float(met["grad_norm"]))
+    del new, met
+    gap = logits_gap(model, steps_mod.cast_compute(state["params"],
+                                                   cfg.compute_dtype), batch)
+    d_loss = rel(remat["none"]["loss"], bf_torch[0])
+    d_norm = rel(remat["none"]["grad_norm"], bf_torch[1])
+    print(f"  bf16 step 0, cuda vs torch target: loss "
+          f"{remat['none']['loss']:.7f} / {bf_torch[0]:.7f} ({d_loss:.2e} "
+          f"relative, limit 1e-3), grad norm {remat['none']['grad_norm']:.6f}"
+          f" / {bf_torch[1]:.6f} ({d_norm:.2e}, limit 1e-2); logits "
+          f"max|cuda - torch| / max|torch| {gap:.2e} (limit 3e-2)",
+          flush=True)
+    if not d_loss <= 1e-3 or not d_norm <= 1e-2 or not gap <= 3e-2:
+        fail("bf16 training on the cuda target disagrees with the torch "
+             "target")
+    stats["bf16_vs_torch"] = {"torch_loss": bf_torch[0],
+                              "torch_grad_norm": bf_torch[1],
+                              "loss_rel": d_loss, "grad_norm_rel": d_norm,
+                              "logits_gap": gap}
+    del state, model, batch, step
+    torch.cuda.empty_cache()
+
+    # (c) f32 compute at full width: cuda (FFMA flash, RMSNorm) against
+    # torch, 3 steps from one carried state (the master kept on the host)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    hp32 = dataclasses.replace(
+        hp, compute_dtype="float32",
+        optimizer=OptimizerConfig(total_steps=TRAIN_F32_STEPS,
+                                  warmup_steps=1))
+    model = build_model(cfg32)
+    host = tree_map(lambda p: p.cpu(), model.init(0, dev))
+    torch.cuda.empty_cache()
+    data = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_F32_BATCH, seed=1), device=dev)
+    # the forward's logits on both targets from the carried weights:
+    # f32 moves only the summation order, so 1e-5 of the largest logit
+    # (the CPU tests' bar against the reference)
+    params = tree_map(lambda p: p.to(dev), host)
+    gap32 = logits_gap(model, params, {
+        k: dv.device() for k, dv in data.batch_dualview(0).items()})
+    del params
+    print(f"  f32 forward, cuda vs torch target: logits max|cuda - torch| / "
+          f"max|torch| {gap32:.2e} (limit 1e-5)", flush=True)
+    if not gap32 <= 1e-5:
+        fail("the f32 training forward on the cuda target disagrees with "
+             "the torch target")
+    f32 = {}
+    for target in ("cuda", "torch"):
+        params = tree_map(lambda p: p.to(dev), host)
+        state = {"params": params,
+                 "opt": init_opt_state(params, hp32.optimizer)}
+        del params
+        step = steps_mod.make_train_step(model, hp32)
+        reset_counts()
+        rows = []
+        with use_options(CompileOptions(target=target)):
+            for i in range(TRAIN_F32_STEPS):
+                b = {k: dv.device()
+                     for k, dv in data.batch_dualview(i).items()}
+                state, met = step(state, b)
+                rows.append((float(met["loss"]), float(met["grad_norm"])))
+        torch.cuda.synchronize()
+        c = counts()
+        if target == "cuda":
+            path_counts["train qwen2-1.5b f32"] = c
+            no_plain(c, "f32 training")
+            got = launches(c, "flash_attention_f32", "rmsnorm")
+            want = {"flash_attention_f32": L * TRAIN_F32_STEPS,
+                    "rmsnorm": (2 * L + 1) * TRAIN_F32_STEPS}
+            if got != want:
+                fail(f"f32 training launched {got}, want {want}")
+        f32[target] = rows
+        del state, met, b
+        torch.cuda.empty_cache()
+    for i in range(TRAIN_F32_STEPS):
+        print(f"  f32 step {i}: loss cuda {f32['cuda'][i][0]:.7f} / torch "
+              f"{f32['torch'][i][0]:.7f}, grad norm {f32['cuda'][i][1]:.6f} "
+              f"/ {f32['torch'][i][1]:.6f}", flush=True)
+    # every step's loss within 1e-6 relative (about 8 f32 ulps), its
+    # gradient norm within 1e-5: the targets differ in summation order
+    # alone
+    d_loss = max(rel(a[0], b[0]) for a, b in zip(f32["cuda"], f32["torch"]))
+    d_norm = max(rel(a[1], b[1]) for a, b in zip(f32["cuda"], f32["torch"]))
+    print(f"  f32 steps, cuda vs torch: worst loss {d_loss:.2e} relative "
+          f"(limit 1e-6), worst grad norm {d_norm:.2e} (limit 1e-5)",
+          flush=True)
+    if not d_loss <= 1e-6 or not d_norm <= 1e-5:
+        fail("f32 training on the cuda target disagrees with the torch "
+             "target")
+    stats["qwen2_f32"] = {"cuda": f32["cuda"], "torch": f32["torch"],
+                          "loss_rel": d_loss, "grad_norm_rel": d_norm,
+                          "logits_gap": gap32}
+    del model, host
+    torch.cuda.empty_cache()
+
+    # (d) the recurrent families, reduced, f32 compute
+    n_steps, b_, t_ = TRAIN_SMALL
+    for arch, need in (("rwkv6-3b", ("rwkv6_scan", "rmsnorm")),
+                       ("recurrentgemma-9b", ("rglru_scan",
+                                              "flash_attention_f32",
+                                              "rmsnorm"))):
+        cfg_r = dataclasses.replace(get_config(arch, reduced=True),
+                                    compute_dtype="float32")
+        hp_r = dataclasses.replace(hp32, optimizer=OptimizerConfig(
+            total_steps=n_steps, warmup_steps=1))
+        runs = {}
+        for target in ("cuda", "torch"):
+            reset_counts()
+            with use_options(CompileOptions(target=target)):
+                runs[target] = train_mod.train_loop(
+                    cfg_r, steps=n_steps, batch=b_, seq=t_, hp=hp_r,
+                    log_every=0)["losses"]
+            torch.cuda.synchronize()
+            if target == "cuda":
+                c = path_counts[f"train {arch} f32"] = counts()
+                no_plain(c, f"{arch} training")
+                got = {n: l for n, (l, _) in c.items() if l}
+        worst = max(rel(a, b) for a, b in zip(runs["cuda"], runs["torch"]))
+        print(f"  {arch} reduced, {n_steps} steps of {b_} x {t_} at f32: "
+              f"losses cuda {runs['cuda']} / torch {runs['torch']}, worst "
+              f"{worst:.2e} relative (limit 1e-4); launches {got}",
+              flush=True)
+        if any(got.get(n, 0) == 0 for n in need) or not worst <= 1e-4 or \
+                not all(np.isfinite(runs["cuda"])):
+            fail(f"{arch} training: launches {got} (want every one of "
+                 f"{need}) or losses off by {worst:.2e}")
+        stats[f"{arch}_reduced"] = {"cuda": runs["cuda"],
+                                    "torch": runs["torch"],
+                                    "worst_rel": worst, "launches": got}
+
+    # (e) checkpoints and an injected failure, qwen2-1.5b reduced
+    cfg_s = get_config("qwen2-1.5b", reduced=True)
+    with tempfile.TemporaryDirectory() as ckpt, \
+            use_options(CompileOptions(target="cuda")):
+        reset_counts()
+        crashed = train_mod.train_loop(cfg_s, steps=12, batch=4, seq=32,
+                                       ckpt_dir=ckpt, ckpt_every=4,
+                                       log_every=0, inject_failure_at=6)
+        path_counts["train checkpoint"] = counts()
+        latest = CheckpointManager(ckpt).latest()
+        clean = train_mod.train_loop(cfg_s, steps=12, batch=4, seq=32,
+                                     log_every=0)
+    worst = max(rel(a, b) for a, b in zip(crashed["losses"],
+                                          clean["losses"]))
+    print(f"  checkpointed run with a failure at step 6: restarts "
+          f"{crashed['restarts']}, latest checkpoint {latest}, "
+          f"{len(crashed['losses'])} losses, worst {worst:.2e} relative to "
+          "an uninterrupted run (limit 1e-6)", flush=True)
+    if crashed["restarts"] != 1 or latest != 12 or \
+            len(crashed["losses"]) != 12 or not worst <= 1e-6:
+        fail("the checkpoint / restart run did not end as an uninterrupted "
+             "run")
+    no_plain(path_counts["train checkpoint"], "checkpointed training")
+    stats["checkpoint"] = {"restarts": crashed["restarts"],
+                           "latest": latest, "worst_rel": worst}
+    return stats
 
 
 def main() -> int:
@@ -2444,6 +2899,11 @@ def main() -> int:
                   "library_device_ms": mala_lib_dev_ms,
                   "launches": launched, "max_abs_err": err}
 
+    # ---------------------------------------------------------------- 16
+    train_stats = training_phase(torch, np, dev, get_config, CompileOptions,
+                                 use_options, reset_counts, counts,
+                                 path_counts, compare)
+
     # ---------------------------------------------------------------- 15
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/gemm_tile.cuh",
@@ -2520,7 +2980,7 @@ def main() -> int:
                       "serve_rwkv6_3b": rwkv_stats,
                       "serve_recurrentgemma_9b": rg_stats,
                       "batched": batched_stats, "resnet18": resnet_stats,
-                      "mala": mala_stats,
+                      "mala": mala_stats, "training": train_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

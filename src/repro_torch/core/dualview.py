@@ -248,3 +248,20 @@ class DualView:
         return (f"DualView({self.name or hex(id(self))}, "
                 f"{kind}, mh={self.modified_host}, "
                 f"md={self.modified_device})")
+
+
+def tree_sync_host(tree) -> int:
+    """sync_host every DualView leaf of a tree of dicts, lists and tuples;
+    returns the number of actual copies (lazy d2h staging of a whole
+    tree, as a checkpoint writer stages its leaves)."""
+    before = TRANSFERS["d2h"]
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, DualView):
+            node.sync_host()
+    return TRANSFERS["d2h"] - before

@@ -1,1 +1,1 @@
-"""Launch layer: the serving entry point."""
+"""Launch layer: the serving and training entry points."""

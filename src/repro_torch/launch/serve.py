@@ -42,6 +42,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import ops as cops
 from repro_torch.core.options import CompileOptions, use_options
+from repro_torch.launch.steps import cast_compute
 from repro_torch.models import serve as serve_mod
 from repro_torch.models.model import build_model
 from repro_torch.runtime.scheduler import (BlockAllocator, ContinuousScheduler,
@@ -50,15 +51,6 @@ from repro_torch.runtime.scheduler import (BlockAllocator, ContinuousScheduler,
 
 # the compiled one-op programs of the paged ops (hits, misses, evictions)
 ENGINE_CACHE_STATS = cops.PIPELINE_CACHE_STATS
-
-
-def cast_compute(tree, dtype):
-    """Every floating leaf of a tree of dicts cast to ``dtype`` (the
-    reference's ``launch/steps.py:cast_compute``)."""
-    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    if isinstance(tree, dict):
-        return {k: cast_compute(v, dt) for k, v in tree.items()}
-    return tree.to(dt) if tree.is_floating_point() else tree
 
 
 def _device_of(params) -> torch.device:

@@ -1,6 +1,7 @@
 """Model facade: one object per architecture wiring spec → init →
-prefill / decode — the port of the reference's ``models/model.py``, the
-serving half (the training half arrives with the training slice)."""
+forward / loss / prefill / decode — the port of the reference's
+``models/model.py``, used by tests, ``launch/train.py`` and
+``launch/serve.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +31,20 @@ class Model:
         return param_count(self.spec)
 
     # -- compute ---------------------------------------------------------------
+    def forward(self, params, batch: dict, *, remat_policy: str = "none",
+                scan_unroll: int = 1):
+        return tfm.forward_train(params, batch, self.cfg,
+                                 remat_policy=remat_policy,
+                                 scan_unroll=scan_unroll)
+
+    def loss(self, params, batch: dict, *, remat_policy: str = "none",
+             aux_weight: float = 0.01, scan_unroll: int = 1
+             ) -> torch.Tensor:
+        logits, aux = self.forward(params, batch,
+                                   remat_policy=remat_policy,
+                                   scan_unroll=scan_unroll)
+        return tfm.lm_loss(logits, batch["labels"]) + aux_weight * aux
+
     def init_cache(self, batch: int, max_len: int, *,
                    quantized: bool = False, device="cuda"):
         return serve_mod.init_cache(self.cfg, batch, max_len,

@@ -35,11 +35,15 @@ class Spec:
                              "differ in rank")
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every ``Spec`` leaf of a tree of dicts."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a tree of dicts (a ``Spec``, a
+    tensor), keys in sorted order as JAX maps dicts; each tree of
+    ``rest`` is walked down to ``tree``'s leaves, so what sits there (a
+    tensor, or a dict such as Adafactor's factors) is passed whole."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def tree_leaves_with_path(tree, path=()):
@@ -50,6 +54,12 @@ def tree_leaves_with_path(tree, path=()):
             out.extend(tree_leaves_with_path(tree[k], path + (k,)))
         return out
     return [(path, tree)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in :func:`tree_leaves_with_path`'s (and
+    :func:`tree_map`'s) order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
 def stack(spec_tree, n: int):

@@ -5,12 +5,18 @@ their slices.
 
 Layer parameters are stacked along a leading layers dim, as in the
 reference's tree (the hybrid's per pattern group, ``groups`` and the
-remainder group ``rem``); the serving paths walk the stack with a
-Python loop where the reference scans.
+remainder group ``rem``).  Where the reference scans the stack with
+``jax.lax.scan``, the port walks it with a Python loop: the serving paths
+take one layer's views (:func:`layer_params`), training unbinds each
+stacked leaf once (:func:`unstack`), so every layer's gradient flows
+back into the stacked leaf through one stack in the backward.  Each
+layer body may run under ``torch.utils.checkpoint`` with the reference's
+remat policies (:func:`_remat_policy`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -18,8 +24,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru_block as rg_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.layers import (apply_embed, apply_unembed,
-                                       layernorm_spec, norm_spec)
+from repro_torch.models.layers import (apply_embed, apply_norm,
+                                       apply_unembed, layernorm_spec,
+                                       norm_spec)
 from repro_torch.models.spec import Spec, stack
 
 
@@ -97,6 +104,17 @@ def layer_params(params: dict, i: int, key: str = "layers") -> dict:
     return take(params[key], i)
 
 
+def unstack(tree) -> list:
+    """A tree stacked along its leading dim → one tree per entry, each
+    leaf a view from one ``torch.unbind`` of the stacked leaf (whose
+    backward stacks the entries' gradients once)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def stack_trees(trees: list):
     """The inverse of :func:`take`: one tree whose leaves stack the
     trees' leaves along a new leading dim."""
@@ -133,3 +151,156 @@ def _lm_head(params, x, cfg):
     if cfg.tie_embeddings:
         return apply_unembed(params["embed"], x)
     return x @ params["head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# layer bodies (one layer, or one hybrid pattern group)
+# ---------------------------------------------------------------------------
+
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _dense_layer(lp, x, cfg, positions, window=None):
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    x = x + attn.apply_attention(lp["attn"], h, cfg, positions=positions,
+                                 causal=True, window=window)
+    h = apply_norm(lp["ln2"], x, cfg.norm)
+    x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
+    return x, _no_aux(x)
+
+
+def _rwkv_layer(lp, x, cfg):
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    x = x + rwkv_mod.apply_time_mix(lp["time_mix"], h, cfg)
+    h = apply_norm(lp["ln2"], x, cfg.norm)
+    x = x + rwkv_mod.apply_channel_mix(lp["channel_mix"], h, cfg)
+    return x, _no_aux(x)
+
+
+def _hybrid_group(gp, x, cfg, positions, pattern):
+    for i, kind in enumerate(pattern):
+        lp = gp[f"b{i}_{kind}"]
+        h = apply_norm(lp["ln1"], x, cfg.norm)
+        if kind == "R":
+            x = x + rg_mod.apply_recurrent_block(lp["temporal"], h, cfg)
+        else:
+            x = x + attn.apply_attention(lp["temporal"], h, cfg,
+                                         positions=positions, causal=True,
+                                         window=cfg.window)
+        h = apply_norm(lp["ln2"], x, cfg.norm)
+        x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the layer loop and its remat
+# ---------------------------------------------------------------------------
+
+def _remat_policy(name: str) -> Optional[frozenset]:
+    """The reference's ``jax.checkpoint`` policies: the matrix products
+    whose outputs a remat'd layer keeps for its backward — none for
+    ``nothing``, every product for ``dots`` (``dots_saveable``), the
+    products with no batch dim for ``dots_no_batch``
+    (``dots_with_no_batch_dims_saveable``: a model's ``x @ w`` is one
+    ``mm``).  Everything else is recomputed."""
+    aten = torch.ops.aten
+    return {"nothing": None,
+            "dots": frozenset((aten.mm, aten.addmm, aten.bmm, aten.baddbmm)),
+            "dots_no_batch": frozenset((aten.mm, aten.addmm))}[name]
+
+
+def _save_products(products, ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in products
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(layer_fn, policy: str):
+    """``layer_fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward, bar the products ``policy`` keeps (a selective-checkpoint
+    context)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    products = _remat_policy(policy)
+    kw = {} if products is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts,
+        functools.partial(_save_products, products))}
+
+    def run(lp, x):
+        return checkpoint(layer_fn, lp, x, use_reentrant=False, **kw)
+    return run
+
+
+def _scan_layers(layer_fn, stacked_params, x, *,
+                 policy: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x through the stacked layers in order; layer_fn(lp, x) -> (x, aux)."""
+    fn = layer_fn if not policy or policy == "none" else \
+        _remat(layer_fn, policy)
+    aux = _no_aux(x)
+    for lp in unstack(stacked_params):
+        x, a = fn(lp, x)
+        aux = aux + a
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+
+def forward_train(params, batch: dict, cfg, *,
+                  remat_policy: str = "nothing",
+                  scan_unroll: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logits (B, S, padded_vocab), aux_loss).  ``scan_unroll`` is
+    the reference's ``lax.scan`` unroll; a Python loop has none, so it
+    is taken and ignored."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(
+            f"training the {cfg.family} family needs its modules, which "
+            "are not ported yet (ROADMAP queue A4)")
+    B, S = batch["tokens"].shape
+    x = _embed_input(params, batch, cfg)
+    positions = _positions_for(cfg, B, S, batch, x.device)
+    if cfg.family == "dense":
+        x, aux = _scan_layers(
+            lambda lp, x: _dense_layer(lp, x, cfg, positions),
+            params["layers"], x, policy=remat_policy)
+    elif cfg.family == "rwkv":
+        x, aux = _scan_layers(lambda lp, x: _rwkv_layer(lp, x, cfg),
+                              params["layers"], x, policy=remat_policy)
+    else:
+        n_rem = cfg.n_layers % len(cfg.pattern)
+        aux = _no_aux(x)
+        for key, pattern in (("groups", cfg.pattern),
+                             ("rem", cfg.pattern[:n_rem])):
+            if key not in params:
+                continue
+            x, a = _scan_layers(
+                lambda gp, x, pattern=pattern: (
+                    _hybrid_group(gp, x, cfg, positions, pattern),
+                    _no_aux(x)),
+                params[key], x, policy=remat_policy)
+            aux = aux + a
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _lm_head(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+            z_loss: float = 1e-4) -> torch.Tensor:
+    """Masked CE over the real vocab (padded ids never appear in labels);
+    ``labels < 0`` = ignored.  A small z-loss keeps the (padded) softmax
+    normalizer tame at scale."""
+    lf = logits.float()
+    labels = labels.long()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    z = torch.square(lse) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (nll.sum() + z_loss * z.sum()) / denom

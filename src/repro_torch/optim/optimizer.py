@@ -1,0 +1,190 @@
+"""Optimizers — the port of the reference's ``optim/optimizer.py``: AdamW
+(f32 master + moments) and Adafactor (factored second moment, the
+memory-lean option), with global-norm clipping and a warmup + cosine
+schedule.
+
+Plain functions on trees (nested dicts) of tensors, functional as the
+reference's: :func:`opt_update` returns new parameter and state trees and
+leaves its inputs as they were.  ``torch.optim`` is not used: the
+schedule (warmup, cosine, a floor at ``min_lr_ratio``) is computed from
+the state's step inside the update, the gradient transforms and the
+clip see the whole tree first, and each leaf's update is the
+reference's formula in its order of f32 operations.  The master weights
+live here; the train step casts master → compute dtype, differentiates
+the compute tree, and hands its (bf16) gradients back, cast up to f32
+here.  An optional int8 + error-feedback gradient transform is a
+further knob.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.models.spec import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    kind: str = "adamw"              # adamw | adafactor
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    # gradient transform: none | bf16 | int8_ef (error feedback)
+    grad_transform: str = "none"
+
+
+def _unzip(tree, n: int) -> tuple:
+    """A tree of n-tuples → n trees."""
+    return tuple(tree_map(lambda t, i=i: t[i], tree) for i in range(n))
+
+
+def lr_at(step, hp: OptimizerConfig) -> torch.Tensor:
+    """The learning rate at ``step`` (an int or a 0-d tensor), in f32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(hp.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - hp.warmup_steps) /
+                       max(hp.total_steps - hp.warmup_steps, 1), 0, 1)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return hp.lr * warm * (hp.min_lr_ratio + (1 - hp.min_lr_ratio) * cos)
+
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+
+def init_opt_state(params, hp: OptimizerConfig) -> dict:
+    """params = the master tree; the state's leaves sit on its device."""
+    if hp.kind == "adamw":
+        state = {"m": tree_map(torch.zeros_like, params),
+                 "v": tree_map(torch.zeros_like, params)}
+    elif hp.kind == "adafactor":
+        def fac(p):
+            # factored moments are tiny → keep them f32 even when the
+            # master weights are bf16
+            f32 = {"dtype": torch.float32, "device": p.device}
+            if p.ndim < 2:
+                return {"v": torch.zeros(p.shape, **f32)}
+            return {"vr": torch.zeros(p.shape[:-1], **f32),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+        state = {"fac": tree_map(fac, params)}
+    else:
+        raise ValueError(hp.kind)
+    if hp.grad_transform == "int8_ef":
+        state["ef"] = tree_map(torch.zeros_like, params)
+    state["step"] = torch.zeros((), dtype=torch.int32,
+                                device=tree_leaves(params)[0].device)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# gradient transforms (compression)
+# ---------------------------------------------------------------------------
+
+def _quantize_int8(g: torch.Tensor) -> torch.Tensor:
+    scale = torch.clamp(g.abs().max() / 127.0, min=1e-12)
+    q = torch.round(g / scale).to(torch.int8)
+    return q.to(torch.float32) * scale
+
+
+def transform_grads(grads, state: dict, hp: OptimizerConfig) -> Tuple:
+    if hp.grad_transform == "none":
+        return grads, state
+    if hp.grad_transform == "bf16":
+        return tree_map(lambda g: g.to(torch.bfloat16).to(torch.float32),
+                        grads), state
+
+    if hp.grad_transform == "int8_ef":
+        def one(g, e):
+            corrected = g.to(torch.float32) + e
+            q = _quantize_int8(corrected)
+            return q, corrected - q
+        new_g, new_ef = _unzip(tree_map(one, grads, state["ef"]), 2)
+        return new_g, dict(state, ef=new_ef)
+    raise ValueError(hp.grad_transform)
+
+
+# ---------------------------------------------------------------------------
+# update
+# ---------------------------------------------------------------------------
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def opt_update(params, grads, state: dict, hp: OptimizerConfig
+               ) -> Tuple[Any, dict, dict]:
+    """→ (new_params, new_state, metrics).  params / grads trees align;
+    grads may be bf16 (cast up here).  The clip scale multiplies each
+    gradient inside its leaf's update, so no second scaled tree is
+    held (the reference scales the tree first; the values are the
+    same)."""
+    grads = tree_map(lambda g: g.to(torch.float32), grads)
+    grads, state = transform_grads(grads, state, hp)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(hp.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0) if hp.clip_norm else 1.0
+    step = state["step"] + 1
+    lr = lr_at(step, hp)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+
+    if hp.kind == "adamw":
+        b1, b2 = hp.b1, hp.b2
+        bc1 = 1 - b1 ** step.to(torch.float32)
+        bc2 = 1 - b2 ** step.to(torch.float32)
+
+        def upd(p, g, m, v):
+            g = g * scale
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * torch.square(g)
+            mh = m / bc1
+            vh = v / bc2
+            pf = p.to(torch.float32)
+            new_p = (pf - lr * (mh / (torch.sqrt(vh) + hp.eps)
+                                + hp.weight_decay * pf)).to(p.dtype)
+            return new_p, m, v
+
+        new_params, m, v = _unzip(
+            tree_map(upd, params, grads, state["m"], state["v"]), 3)
+        return new_params, dict(state, m=m, v=v, step=step), metrics
+
+    if hp.kind == "adafactor":
+        eps = 1e-30
+        decay = 1.0 - (step.to(torch.float32) + 1.0) ** -0.8
+
+        def upd(p, g, f):
+            g = g * scale
+            g2 = torch.square(g) + eps
+            if p.ndim < 2:
+                v = decay * f["v"] + (1 - decay) * g2
+                u = g * torch.rsqrt(v + eps)
+                nf = {"v": v}
+            else:
+                vr = decay * f["vr"] + (1 - decay) * g2.mean(dim=-1)
+                vc = decay * f["vc"] + (1 - decay) * g2.mean(dim=-2)
+                denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+                v_est = (vr[..., None] * vc[..., None, :]) / denom[..., None]
+                u = g * torch.rsqrt(v_est + eps)
+                nf = {"vr": vr, "vc": vc}
+            # update clipping (Adafactor RMS rule)
+            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            u = u / torch.clamp(rms, min=1.0)
+            pf = p.to(torch.float32)
+            new_p = (pf - lr * (u + hp.weight_decay * pf)).to(p.dtype)
+            return new_p, nf
+
+        new_params, fac = _unzip(tree_map(upd, params, grads, state["fac"]),
+                                 2)
+        return new_params, dict(state, fac=fac, step=step), metrics
+
+    raise ValueError(hp.kind)

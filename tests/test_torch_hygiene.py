@@ -33,7 +33,12 @@ def test_import_pulls_in_neither_jax_nor_reference():
     for serving in ("repro_torch.runtime.scheduler",
                     "repro_torch.models.serve", "repro_torch.models.model",
                     "repro_torch.models.attention",
-                    "repro_torch.launch.serve"):
+                    "repro_torch.launch.serve", "repro_torch.launch.train",
+                    "repro_torch.launch.steps", "repro_torch.optim",
+                    "repro_torch.optim.optimizer", "repro_torch.data",
+                    "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                    "repro_torch.checkpoint.manager",
+                    "repro_torch.runtime.fault"):
         assert serving in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
