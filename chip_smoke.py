@@ -185,6 +185,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     4 into a temporary directory and a failure injected at step 6: one
     restart, the latest checkpoint at step 12, and the losses of an
     uninterrupted run to 1e-6;
+17. (run after 16, before 15's lines) lapis-translate and autotune on the
+    card: (a) ``pipeline.main(["--demo", "mlp", "--target", "cuda",
+    "--emit", ..., "--emit-cpp", ..., "--run-native"])`` returns 0; each
+    of the four demos, compiled for ``cuda``, is emitted as a torch module
+    (imported and initialized, every weight on the card, its
+    output within 1e-5 of the cuda callable's in f32 and equal for the
+    paged copies, no hand kernel launched by it) and as a Kokkos C++ unit
+    built by g++ against ``tests/kokkos_stub`` and run on the host, within
+    1e-4 of the cuda callable (the build seconds printed); (b)
+    ``examples/quickstart_torch.py`` end to end on the card; (c) phase
+    13's ResNet18 through ``save_source``: the source's MB, the seconds of
+    emit, import and ``lapis_initialize`` (weights on the card), the
+    probabilities within rtol 1e-3 / atol 1e-6 of the cuda call with the
+    same top-1 classes, and the emitted module's call timed beside the
+    compiled cuda and torch calls; (d) autotune on the card into a
+    temporary tune cache: SpMV on phase 5's PFlow_742 matrix and the mlp
+    demo with ``autotune=True``, each candidate's tiling, launch plan and
+    measured us printed with how many launch differently, the decision's
+    ``cost.source == "autotune"``, a second compile replaying it with 0
+    measurements (the same tiling, cost attrs and C++), the tuned SpMV
+    within phase 5's 1e-4 relative of the plain version in f64 and the
+    tuned mlp within 1e-5 of the untuned;
 15. print the ``{"kernels": [...]}`` line (sixteen kernels: flash
     attention's bf16 and f32 kernels are two rows, and so are the bf16
     ``wgmma`` and the FFMA routes of ``kk.gemm`` and of the tiled batched
@@ -206,6 +228,7 @@ import dataclasses
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -784,6 +807,293 @@ def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
     return stats
 
 
+def _import_path(path: Path, name: str):
+    """Import a source file as a fresh module (the emitted modules and
+    the example ports)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def translate_phase(ctx) -> dict:
+    """Phase 17 (the module docstring): lapis-translate and autotune on
+    the card.  ``ctx`` carries main()'s helpers and the ResNet18 of
+    phase 13."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import costmodel, native, pipeline
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.kernels import spmv as spmv_mod
+    reset_counts, counts, path_counts = (ctx["reset_counts"],
+                                         ctx["counts"], ctx["path_counts"])
+    time_ms, compare = ctx["time_ms"], ctx["compare"]
+    stats = {"demos": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="lapis_translate_"))
+
+    # ---- (a) the four demos, emitted from the cuda compile
+    print("phase 17a: pipeline.main(['--demo', 'mlp', '--target', 'cuda', "
+          "'--emit', ..., '--emit-cpp', ..., '--run-native'])", flush=True)
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pipeline.main(["--demo", "mlp", "--target", "cuda", "--emit",
+                            str(tmp / "cli_mlp.py"), "--emit-cpp",
+                            str(tmp / "cli_mlp.cpp"), "--run-native"])
+    torch.cuda.synchronize()
+    c = path_counts["emit cli mlp"] = counts()
+    out = buf.getvalue().strip()
+    print("  " + out.replace("\n", "\n  "), flush=True)
+    if rc != 0 or "max |torch - native|" not in out or \
+            "output shape: (8, 10) sum: 8.0" not in out:
+        fail(f"pipeline.main --emit / --emit-cpp / --run-native returned {rc}")
+    if c["matmul"][0] != 2 or any(p for _, p in c.values()):
+        fail(f"the CLI's mlp call launched {c}, want 2 gemms and no plain "
+             "call")
+    for demo in ("mlp", "spmv", "paged", "paged_swap"):
+        fn, specs, example = pipeline._DEMOS[demo]()
+        mod = pipeline.compile(fn, *specs,
+                               options=CompileOptions(target="cuda"))
+        name = mod.graph.name
+        reset_counts()
+        y = mod(*example)
+        torch.cuda.synchronize()
+        path_counts[f"emit demo {demo}"] = counts()
+        src_path = tmp / f"{demo}_gen.py"
+        mod.save_source(str(src_path))
+        gen = _import_path(src_path, f"lapis_gen_{demo}")
+        gen.lapis_initialize()
+        on_card = all(w.device.type == "cuda" for w in gen._WEIGHTS.values())
+        reset_counts()
+        y_src = getattr(gen, name)(*example)
+        torch.cuda.synchronize()
+        hand = {k: v for k, v in counts().items() if any(v)}
+        limit = 1e-5 if demo in ("mlp", "spmv") else 0.0
+        err_src = float((y_src - y).abs().max())
+        t0 = time.perf_counter()
+        so = native.build_shared(mod.save_cpp(str(tmp / f"{demo}.cpp")), tmp)
+        build_s = time.perf_counter() - t0
+        y_nat = native.NativeModule(so)(*example)
+        err_nat = float(np.max(np.abs(y_nat - y.cpu().numpy())))
+        print(f"  demo {demo}: emitted module ({len(gen._WEIGHTS)} weights, "
+              f"on the card: {on_card}, device {y_src.device}) vs cuda "
+              f"callable {err_src:.3e} (limit {limit:.0e}), hand launches "
+              f"{hand or 'none'}; C++ unit built by g++ in {build_s:.2f} s "
+              f"(stub), native vs cuda callable {err_nat:.3e} (limit 1e-4)",
+              flush=True)
+        if not on_card or y_src.device.type != "cuda" or err_src > limit \
+                or hand or err_nat > 1e-4 or \
+                tuple(y_src.shape) != tuple(y.shape):
+            fail(f"the emitted forms of demo {demo} disagree with the cuda "
+                 "callable, or a weight is off the card")
+        gen.lapis_finalize()
+        stats["demos"][demo] = {"source_err": err_src, "native_err": err_nat,
+                                "native_build_s": build_s}
+
+    # ---- (b) the quickstart port, end to end on the card
+    print("phase 17b: examples/quickstart_torch.py on the card", flush=True)
+    qs = _import_path(ROOT / "examples" / "quickstart_torch.py",
+                      "quickstart_torch")
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        qs.main([])
+    torch.cuda.synchronize()
+    c = path_counts["quickstart"] = counts()
+    lines = buf.getvalue().strip().splitlines()
+    print("  " + "\n  ".join(ln for ln in lines if "OK" in ln
+                             or ln.startswith(("output:", "wrote"))),
+          flush=True)
+    if lines[-1] != "OK" or "generated module output on cuda:0 matches: OK" \
+            not in lines or c["matmul"][0] != 2 or \
+            any(p for _, p in c.values()):
+        fail(f"the quickstart port failed on the card (launches {c})")
+
+    # ---- (c) ResNet18 at full width through save_source
+    rn_fn, rn_spec = ctx["rn_fn"], ctx["rn_spec"]
+    print(f"phase 17c: ResNet18 at full width {tuple(rn_spec.shape)} f32, "
+          "save_source, import, lapis_initialize on the card", flush=True)
+    rn_mod = pipeline.compile(rn_fn, rn_spec, name="forward",
+                              options=CompileOptions(target="cuda"))
+    rn_lib = pipeline.compile(rn_fn, rn_spec,
+                              options=CompileOptions(target="torch"))
+    xr = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        rn_spec.shape).astype(np.float32)).to("cuda")
+    reset_counts()
+    probs = rn_mod(xr)
+    torch.cuda.synchronize()
+    path_counts["emit resnet18"] = counts()
+    t0 = time.perf_counter()
+    rn_path = Path(rn_mod.save_source(str(tmp / "resnet18_gen.py")))
+    emit_s = time.perf_counter() - t0
+    mb = rn_path.stat().st_size / 1e6
+    t0 = time.perf_counter()
+    rgen = _import_path(rn_path, "lapis_gen_resnet18")
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rgen.lapis_initialize()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_w = len(rgen._WEIGHTS)
+    on_card = all(w.device.type == "cuda" for w in rgen._WEIGHTS.values())
+    w_mb = sum(w.numel() * w.element_size()
+               for w in rgen._WEIGHTS.values()) / 1e6
+    reset_counts()
+    probs_src = rgen.forward(xr)
+    torch.cuda.synchronize()
+    hand = {k: v for k, v in counts().items() if any(v)}
+    err = float((probs_src - probs).abs().max())
+    ok = (on_card and not hand
+          and torch.allclose(probs_src, probs, rtol=1e-3, atol=1e-6)
+          and torch.equal(probs_src.argmax(-1), probs.argmax(-1)))
+    print(f"  source {mb:.1f} MB ({n_w} weights, {w_mb:.1f} MB of f32, on "
+          f"the card: {on_card}); emit {emit_s:.2f} s, import {import_s:.2f}"
+          f" s, lapis_initialize {init_s:.2f} s; emitted vs cuda callable: "
+          f"max abs err {err:.3e} (limit rtol 1e-3, atol 1e-6), top-1 "
+          f"{probs_src.argmax(-1).tolist()} vs {probs.argmax(-1).tolist()}; "
+          f"hand launches by the emitted module: {hand or 'none'}",
+          flush=True)
+    if not ok:
+        fail("the emitted ResNet18 module disagrees with the cuda callable")
+    t_src = time_ms(lambda: rgen.forward(xr), with_host=True)
+    t_cuda = time_ms(lambda: rn_mod(xr), with_host=True)
+    t_lib = time_ms(lambda: rn_lib(xr), with_host=True)
+    print(f"  call (CUDA events, median of 15, L2 flushed, host incl.): "
+          f"emitted module {t_src:.4f} ms, compiled cuda {t_cuda:.4f} ms, "
+          f"compiled torch {t_lib:.4f} ms", flush=True)
+    stats["resnet18"] = {"source_mb": mb, "weights_mb": w_mb,
+                         "emit_s": emit_s, "import_s": import_s,
+                         "initialize_s": init_s, "max_abs_err": err,
+                         "emitted_ms": t_src, "cuda_ms": t_cuda,
+                         "torch_ms": t_lib}
+    rgen.lapis_finalize()
+    del rgen, rn_mod, rn_lib, probs, probs_src, xr
+    rn_path.unlink()
+    torch.cuda.empty_cache()
+
+    # ---- (d) autotune on the card, into a temporary tune cache
+    cache = tmp / "tune"
+    prev_env = os.environ.get("REPRO_TUNE_CACHE")
+    os.environ["REPRO_TUNE_CACHE"] = str(cache)
+    name, n, mean, mx = next(m for m in TABLE_6_1 if m[0] == SPMM_MATRIX)
+    gen_t = torch.Generator(device="cuda")
+    gen_t.manual_seed(1)
+    ip, cols, vals = synth_csr(torch, n, mean, mx, gen_t)
+    xv = torch.randn(n, generator=gen_t, device="cuda")
+    max_row = int((ip[1:] - ip[:-1]).max())
+
+    def spmv_fn(ipv, indv, valv, x_):
+        from repro_torch.core import ops
+        return ops.spmv_csr(ipv, indv, valv, x_, n_rows=n,
+                            max_nnz_row=max_row)
+
+    mlp_fn, mlp_specs, (mlp_x,) = pipeline._demo_mlp()
+    autotune = {}
+    for case, fn, args, opname in (
+            (f"spmv {name}", spmv_fn, (ip, cols, vals, xv), "kk.spmv"),
+            ("mlp demo", mlp_fn, (mlp_x,), "kk.gemm")):
+        print(f"phase 17d: autotune {case} on the card (target cuda, "
+              f"top-3, tune cache in a temporary directory)", flush=True)
+        opts = CompileOptions(target="cuda", autotune=True)
+        specs = mlp_specs if case == "mlp demo" else args
+        costmodel.reset_cache_stats()
+        t0 = time.perf_counter()
+        tuned = pipeline.compile(fn, *specs, options=opts)
+        tune_s = time.perf_counter() - t0
+        st1 = costmodel.reset_cache_stats()
+        tuned_ops = [op for op in tuned.graph.ops if op.opname == opname]
+        recs = {}
+        for f in sorted(cache.iterdir()):
+            rec = json.loads(f.read_text())
+            if rec["opname"] == opname:
+                recs[tuple(tuple(s) for s in rec["shapes"])] = rec
+        for op in tuned_ops:
+            cost = op.attrs["cost"]
+            if cost.get("source") != "autotune" or "measured_us" not in cost:
+                fail(f"{case}: {opname} cost {cost}, want an autotune "
+                     "decision with measured_us")
+        plans = []
+        for rec in recs.values():
+            for cand in rec["candidates"]:
+                t = cand["tiling"]
+                if opname == "kk.spmv":
+                    plan = spmv_mod.spmv_plan(n, *spmv_mod.check_tiling(t))
+                else:
+                    (m_, k_), (_, n_) = rec["shapes"]
+                    a_ = torch.empty((m_, k_), device="cuda")
+                    b_ = torch.empty((k_, n_), device="cuda")
+                    plan = ctx["mm"].plan_for(a_, b_)
+                plans.append((json.dumps(rec["shapes"]), plan))
+                print(f"  candidate {t}: predicted {cand['predicted_us']} us, "
+                      f"measured {cand['measured_us']} us; launch plan "
+                      f"{plan}", flush=True)
+        by_shape = collections.defaultdict(list)
+        for shape, plan in plans:
+            by_shape[shape].append(json.dumps(plan, sort_keys=True))
+        distinct = {s: len(set(v)) for s, v in by_shape.items()}
+        print(f"  {st1['measured']} measurements in {tune_s:.2f} s of "
+              f"compile; distinct launches among the candidates per op: "
+              f"{list(distinct.values())} (a tie among identical launches "
+              "is noise)", flush=True)
+        if st1["measured"] < 1:
+            fail(f"{case}: autotune measured nothing")
+        reset_counts()
+        y = tuned(*args)
+        torch.cuda.synchronize()
+        path_counts[f"autotune {case}"] = counts()
+        costmodel.reset_cache_stats()
+        again = pipeline.compile(fn, *specs, options=opts)
+        st2 = costmodel.reset_cache_stats()
+        again_ops = [op for op in again.graph.ops if op.opname == opname]
+        same = (st2["measured"] == 0 and st2["hits"] >= len(tuned_ops)
+                and [o.attrs["tiling"] for o in again_ops]
+                == [o.attrs["tiling"] for o in tuned_ops]
+                and [o.attrs["cost"] for o in again_ops]
+                == [o.attrs["cost"] for o in tuned_ops]
+                and again.emit_cpp_source() == tuned.emit_cpp_source())
+        print(f"  replay: {st2['measured']} measurements, {st2['hits']} "
+              f"cache hits, same tiling, cost attrs and C++: {same}; "
+              f"chosen {[o.attrs['tiling'] for o in tuned_ops]}", flush=True)
+        if not same:
+            fail(f"{case}: the autotune replay differs from the first "
+                 "compile")
+        if opname == "kk.spmv":
+            a64 = spmv_mod.CsrMatrix(ip, cols, vals.double(), n, n)
+            want = spmv_mod.spmv_reference(a64, xv.double()).float()
+            err = compare("spmv", y, want, 1e-4,
+                          f"tuned spmv {name} vs the plain version in f64",
+                          relative=True)
+        else:
+            plain = pipeline.compile(fn, *specs, options=CompileOptions(
+                target="cuda"))(*args)
+            err = float((y - plain).abs().max())
+            print(f"  tuned vs untuned mlp: max abs err {err:.3e} (limit "
+                  "1e-5)", flush=True)
+            if err > 1e-5:
+                fail("the tuned mlp demo disagrees with the untuned one")
+        autotune[case] = {
+            "measured": st1["measured"], "compile_s": tune_s,
+            "chosen": [o.attrs["tiling"] for o in tuned_ops],
+            "cost": [o.attrs["cost"] for o in tuned_ops],
+            "candidates": [r["candidates"] for r in recs.values()],
+            "distinct_launches": list(distinct.values()), "max_abs_err": err}
+        for f in cache.iterdir():
+            f.unlink()
+    if prev_env is None:
+        del os.environ["REPRO_TUNE_CACHE"]
+    else:
+        os.environ["REPRO_TUNE_CACHE"] = prev_env
+    stats["autotune"] = autotune
+    del ip, cols, vals, xv
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1086,6 +1396,12 @@ def main() -> int:
 
     mala_mod = pipeline.compile(mala_fn, mala_spec,
                                 options=CompileOptions(target="cuda"))
+    # phase 17's quickstart port: its bias + gelu region is a library of
+    # its own, built with the others
+    qs = _import_path(ROOT / "examples" / "quickstart_torch.py",
+                      "quickstart_torch")
+    qs_mod = pipeline.compile(qs.model, TensorSpec((8, 64), "float32"),
+                              options=CompileOptions(target="cuda"))
 
     ragged = (127, 65, 129)
     gemv_mk = (1000, 777)
@@ -1098,7 +1414,8 @@ def main() -> int:
                + [spmv_mod.spmv_kernel(), spmm_mod.spmm_kernel(),
                   pk.page_gather_kernel()]
                + kops.serving_kernel_sources()
-               + [ks for m in (*bmm_mods.values(), rn_mod, mala_mod)
+               + [ks for m in (*bmm_mods.values(), rn_mod, mala_mod,
+                               qs_mod)
                   for ks in kops.kernel_sources(m.graph)])
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
@@ -2904,6 +3221,12 @@ def main() -> int:
                                  use_options, reset_counts, counts,
                                  path_counts, compare)
 
+    # ---------------------------------------------------------------- 17
+    translate_stats = translate_phase({
+        "reset_counts": reset_counts, "counts": counts,
+        "path_counts": path_counts, "time_ms": time_ms, "compare": compare,
+        "rn_fn": rn_fn, "rn_spec": rn_spec, "mm": mm})
+
     # ---------------------------------------------------------------- 15
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/gemm_tile.cuh",
@@ -2981,6 +3304,7 @@ def main() -> int:
                       "serve_recurrentgemma_9b": rg_stats,
                       "batched": batched_stats, "resnet18": resnet_stats,
                       "mala": mala_stats, "training": train_stats,
+                      "translate": translate_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

@@ -9,3 +9,4 @@ re-imports are safe.
 """
 from repro_torch.backends import builtin as _builtin    # noqa: F401
 from repro_torch.backends import loops as _loops        # noqa: F401
+from repro_torch.backends import openmp as _openmp      # noqa: F401

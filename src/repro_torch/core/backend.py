@@ -179,6 +179,24 @@ class ParallelHierarchy:
                 f"unit {self.compute_unit}")
 
 
+# ---------------------------------------------------------------------------
+# TranslateTarget — per-backend C++ spelling for lapis-translate
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TranslateTarget:
+    """How ``lapis-translate`` (:mod:`repro_torch.core.translate`) spells
+    this backend's types and policies in emitted Kokkos C++.  A backend
+    overrides the spelling by declaring one (``Backend.translate_target``)
+    — e.g. the ``openmp`` backend emits ``Kokkos::OpenMP`` nests; a host
+    hierarchy defaults to ``Kokkos::Serial`` and a device one to
+    ``Kokkos::DefaultExecutionSpace``, so the same unit retargets at
+    Kokkos configure time."""
+
+    exec_space: str = "Kokkos::DefaultExecutionSpace"
+    layout: str = "Kokkos::LayoutRight"
+
+
 # The H100 geometry, declared as data: a grid of thread blocks (CTAs),
 # rows of a block tile in multiples of 8, and 32-lane warps innermost.
 # `scratch_bytes` is the shared memory one block may opt into on sm_90
@@ -230,6 +248,7 @@ class Backend:
     selector: Optional[Callable] = None      # (backend, opname, options) -> name
     op_executor: Optional[Callable] = None   # (op, options) -> callable | None
     kernel_predicate: Optional[Callable] = None  # (options) -> bool
+    translate_target: Optional[TranslateTarget] = None  # C++ spelling hook
 
     def ensure_loaded(self) -> None:
         """Run the deferred kernel-module import.  Loaders import modules,
@@ -281,6 +300,17 @@ class Backend:
 
     def has_capability(self, cap: str) -> bool:
         return cap in self.capabilities
+
+    def resolve_translate_target(self) -> TranslateTarget:
+        """The C++ spelling lapis-translate uses for this backend: an
+        explicit ``translate_target`` wins; otherwise host-space
+        hierarchies spell ``Kokkos::Serial`` and device hierarchies the
+        configure-time ``Kokkos::DefaultExecutionSpace``."""
+        if self.translate_target is not None:
+            return self.translate_target
+        if self.hierarchy.exec_space == "host":
+            return TranslateTarget(exec_space="Kokkos::Serial")
+        return TranslateTarget()
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,11 @@ reference's ``repro.core.costmodel``, free of JAX).
   flops / peak) + launches * launch_overhead`` over the declared
   :class:`~repro_torch.core.backend.ParallelHierarchy`; a hierarchy that
   declares its own ceilings (the H100 record does) is modeled with them.
-* :class:`TuneCache` — persisted autotune decisions.  The measurement
-  itself (:func:`measure_callable`) waits for the autotune port.
+* :class:`TuneCache` — persisted autotune decisions; a hit replays the
+  stored tiling and cost attrs verbatim.
+* :func:`measure_callable` — autotune's measure-verify step: CUDA events
+  on the current stream when the arguments lie on the card, the host
+  clock when they lie on the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import hashlib
 import json
 import os
 import platform
+import statistics
+import time
 from typing import Callable, Optional, Sequence
 
 # Bump when cost formulas change: stale tuning-cache entries keyed on an
@@ -308,13 +313,47 @@ def reset_cache_stats() -> dict:
     return snap
 
 
+def _args_device(args: tuple) -> str:
+    """The device type the arguments lie on; arguments on two devices
+    raise (no device is picked for the caller)."""
+    import torch
+    kinds = {a.device.type for a in args if isinstance(a, torch.Tensor)}
+    if len(kinds) > 1:
+        raise ValueError(f"measure_callable: arguments on {sorted(kinds)}")
+    return kinds.pop() if kinds else "cpu"
+
+
 def measure_callable(fn: Callable, args: tuple, reps: int = 3,
                      rounds: int = 3) -> float:
-    """Autotune's measure-verify step.  Timing on the card (CUDA events
-    around the candidate) arrives with the autotune port; until then a
-    compile that asks to measure fails here instead of guessing."""
-    raise NotImplementedError(
-        "autotune measurement is not ported to the torch backends yet")
+    """Median seconds-per-call over ``rounds`` (each a mean over
+    ``reps``), one untimed warm-up excluded — the reference's protocol,
+    sized for in-compile measurement.  Arguments on the card are timed
+    by CUDA events recorded on the current stream around each round
+    (synchronized before the reading); arguments on the CPU by the host
+    clock."""
+    import torch
+    CACHE_STATS["measured"] += 1
+    on_card = _args_device(args) == "cuda"
+    fn(*args)
+    if on_card:
+        torch.cuda.synchronize()
+    samples = []
+    for _ in range(rounds):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn(*args)
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end) / 1e3 / reps)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(*args)
+            samples.append((time.perf_counter() - t0) / reps)
+    return statistics.median(samples)
 
 
 # ---------------------------------------------------------------------------

@@ -224,15 +224,23 @@ def sparsify(graph: Graph,
     ``kk.*`` library-call form.  Backends without the ``sparse``
     capability keep the linalg op (the emitter's reference fallback runs
     it), so new plugins opt in by declaring a flag — never by editing
-    this pass."""
+    this pass.
+
+    The row-block decision goes through :func:`_decide_tiling`, as the
+    dense tilings do, so ``options.autotune`` measures the model's top-k
+    row blocks on the backend (a seeded matrix of the encoding's shape,
+    nnz and longest row) and caches the winner.  The reference pass only
+    ranks them: since the card's sparse kernels take their ``row_block``
+    from the IR's tiling, this is the decision autotune can move there."""
     options = options or current_options()
     backend = options.backend()
     if not backend.has_capability("sparse"):
         return 0
-    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.costmodel import CostModel, TuneCache
     hier = options.resolve_hierarchy()
     model = CostModel(hier)
-    use_model = options.resolve_cost_model()
+    cache = TuneCache.for_options(options) if options.autotune else None
+    ell = backend.has_capability("ell-layout")
     rewritten = 0
     for op in list(graph.ops):
         kk = _SPARSE_TO_KK.get(op.opname)
@@ -251,19 +259,23 @@ def sparsify(graph: Graph,
 
         def spmv_cost(t, _n=n_rows, _z=nnz_mean, _i=itemsize, _c=n_cols):
             return model.spmv_cost(_n, _z, _i, t, _c)
-        if use_model:
-            pred, tiling = model.rank(cands, spmv_cost)[0]
-            source = "model"
-        else:
-            tiling = cands[0]
-            pred, source = spmv_cost(tiling), "heuristic"
-        cost = {"predicted_us": round(pred * 1e6, 3), "source": source}
+        # the decision is recorded on a stand-in carrying the kk.* name
+        # (the tuning cache's key), then moved onto the rewritten op
+        decided = Op(kk, [], [])
+        tiling = _decide_tiling(
+            decided, cands, spmv_cost, options=options, model=model,
+            cache=cache,
+            measure_fn=_sparse_measure_fn(
+                kk, a.type, dense.type, nnz_mean,
+                enc.max_nnz_row if ell else None, options),
+            shapes=(a.type.shape, (enc.nnz or 0, enc.max_nnz_row or 0),
+                    dense.type.shape))
+        cost = decided.attrs["cost"]
         # logical nest of the sparse contraction (bound to physical
         # levels the same way map_parallelism binds dense nests)
         nest = ("league", "team", "vector")
         new_ops = []
-        if backend.has_capability("ell-layout") and \
-                enc.max_nnz_row is not None:
+        if ell and enc.max_nnz_row is not None:
             ell_type = dataclasses.replace(
                 a.type, encoding=enc.with_format("ell"))
             conv = Op("sparse.convert", [a], [ell_type],
@@ -814,12 +826,21 @@ def _decide_tiling(op, cands, cost_fn, *, options, model, cache=None,
                 "source": "autotune"}
         op.attrs["tiling"] = tiling
         op.attrs["cost"] = cost
+        def as_json(t):
+            return {k: (list(v) if isinstance(v, tuple) else v)
+                    for k, v in t.items()}
+        # the search's evidence rides in the record (never in the IR):
+        # every measured candidate, in the model's order
         cache.put(key, {
             "opname": op.opname, "backend": options.backend().name,
             "shapes": [list(s) for s in shapes],
-            "tiling": {k: (list(v) if isinstance(v, tuple) else v)
-                       for k, v in tiling.items()},
-            "cost": cost})
+            "tiling": as_json(tiling),
+            "cost": cost,
+            "candidates": [{"tiling": as_json(c),
+                            "predicted_us": round(p * 1e6, 3),
+                            "measured_us": round(t * 1e6, 3)}
+                           for t, _, p, c in sorted(measured,
+                                                    key=lambda m: m[1])]})
         return tiling
     pred, tiling = ranked[0]
     op.attrs["tiling"] = tiling
@@ -849,6 +870,56 @@ def _gemm_measure_fn(op, options):
             device=device, dtype=torch_dtype(d))
             for s, d in zip(shapes, dtypes))
         return measure_callable(lambda *xs: fn(*xs, tiling=tiling), args)
+    return measure
+
+
+def _sparse_measure_fn(opname, a_type, dense_type, nnz_mean, ell_width,
+                       options):
+    """Measure one row-block candidate of ``kk.spmv`` / ``kk.spmm`` on the
+    backend: dispatch the op as the emitter would, with the candidate
+    bound, on a seeded matrix of the encoding's rows, columns and nnz
+    (the entries dealt evenly over the rows, columns uniform), in the
+    layout the compiled graph hands the op (ELL where the backend
+    converts)."""
+    n_rows, n_cols = a_type.shape
+    enc = a_type.encoding
+    nnz = int(enc.nnz if enc.nnz is not None
+              else round(nnz_mean * n_rows))
+    made: list = []               # the operands, made at the first call
+
+    def operands():
+        import torch
+        from repro_torch.core.tracer import torch_dtype
+        from repro_torch.kernels.spmv import CsrMatrix, as_ell
+        device = options.resolve_device()
+        rng = np.random.default_rng(0)
+        lens = np.full(n_rows, nnz // max(n_rows, 1), np.int64)
+        lens[:nnz - int(lens.sum())] += 1
+        indptr = np.zeros(n_rows + 1, np.int32)
+        np.cumsum(lens, out=indptr[1:])
+        a = CsrMatrix(
+            torch.from_numpy(indptr).to(device),
+            torch.from_numpy(rng.integers(0, n_cols, nnz).astype(
+                np.int32)).to(device),
+            torch.from_numpy(rng.standard_normal(nnz)).to(
+                device=device, dtype=torch_dtype(a_type.dtype)),
+            n_rows, n_cols)
+        if ell_width is not None:
+            a = as_ell(a, max_nnz_row=ell_width)
+        dense = torch.from_numpy(rng.standard_normal(
+            dense_type.shape)).to(device=device,
+                                  dtype=torch_dtype(dense_type.dtype))
+        return a, dense
+
+    def measure(tiling):
+        from repro_torch.core import registry
+        from repro_torch.core.costmodel import measure_callable
+        fn = registry.dispatch(opname, options)
+        if not made:
+            made.extend(operands())
+        return measure_callable(
+            lambda a_, d_: fn(a_, d_, tiling=tiling, max_nnz_row=ell_width),
+            tuple(made))
     return measure
 
 

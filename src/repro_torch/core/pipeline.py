@@ -4,12 +4,16 @@
 tensor IR (torch-mlir analogue), run the lowering pipeline (lapis-opt),
 and build an executable torch callable whose hot ops launch the hand
 CUDA kernels on the card (``target="cuda"``) or the library (``"torch"``).
+The compiled module also emits its freestanding forms (lapis-translate):
+a torch module with the weights embedded, and a Kokkos C++ unit.
 
-CLI (the lapis-opt half, plus running the result)::
+CLI (the lapis-opt / lapis-translate pair, plus running the result)::
 
     PYTHONPATH=src python -m repro_torch.core.pipeline --demo mlp --target cuda
     PYTHONPATH=src python -m repro_torch.core.pipeline --demo mlp \\
         --target cuda --device cpu --print-ir-after-all
+    PYTHONPATH=src python -m repro_torch.core.pipeline --demo mlp --emit out.py
+    PYTHONPATH=src python -m repro_torch.core.pipeline --demo mlp --emit-cpp -
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 from repro_torch.core import backend as backend_mod
-from repro_torch.core import emitter, passes, tracer
+from repro_torch.core import emitter, passes, tracer, translate
 from repro_torch.core.ir import Graph
 from repro_torch.core.options import (DEVICES, CompileOptions,
                                       current_options, use_options)
@@ -37,6 +41,29 @@ class CompiledModule:
     @property
     def forward(self) -> Callable:  # paper: kokkosModule.forward(image)
         return self._callable
+
+    def emit_source(self) -> str:
+        """Freestanding torch module: library semantics, the weights
+        embedded, the compile's device the default for its
+        ``lapis_initialize``."""
+        return emitter.emit_python_source(self.graph, self.options)
+
+    def save_source(self, path: str) -> str:
+        src = self.emit_source()
+        with open(path, "w") as f:
+            f.write(src)
+        return path
+
+    def emit_cpp_source(self) -> str:
+        """Freestanding Kokkos C++ translation unit (lapis-translate —
+        the paper's C++-with-embedded-weights artifact, §4.4)."""
+        return translate.emit_cpp_source(self.graph, self.options)
+
+    def save_cpp(self, path: str) -> str:
+        src = self.emit_cpp_source()
+        with open(path, "w") as f:
+            f.write(src)
+        return path
 
     def print_ir(self) -> str:
         return str(self.graph)
@@ -215,8 +242,31 @@ the demos (--demo):
          arena then swap_in to fresh pool blocks, both lowered to
          kokkos.page_copy with a direction attr
 
+translation outputs:
+  --emit PATH       freestanding *torch* module, weights embedded as a
+                    base64 npz blob (runs with only torch+numpy; library
+                    semantics, no hand kernel; loads its weights on the
+                    compile's --device)
+  --emit-cpp PATH   freestanding *Kokkos C++* translation unit
+                    (lapis-translate, paper §4.4): weights as constant
+                    arrays, kokkos.* ops as RangePolicy/TeamPolicy
+                    parallel_for nests, DualView syncs.  PATH '-' prints
+                    to stdout.  Syntax-check with
+                    g++ -std=c++17 -fsyntax-only -I tests/kokkos_stub
+  --run-native      compile the C++ unit (real Kokkos when $KOKKOS_ROOT
+                    is set, else the executable tests/kokkos_stub), load
+                    it via ctypes through the C-ABI harness, run the demo
+                    inputs through BOTH the compiled torch callable and
+                    the native binary (on the host), and diff (exit 1
+                    past 1e-4)
+
 examples:
   python -m repro_torch.core.pipeline --demo mlp --target cuda
+  python -m repro_torch.core.pipeline --demo mlp --device cpu --emit-cpp -
+  python -m repro_torch.core.pipeline --demo spmv --target loops \\
+      --device cpu --emit-cpp out.cpp
+  python -m repro_torch.core.pipeline --demo paged --target openmp \\
+      --device cpu --run-native
   python -m repro_torch.core.pipeline --demo spmv --target cuda --device cpu
   python -m repro_torch.core.pipeline --demo paged --target loops \\
       --device cpu --print-ir-after-all
@@ -240,6 +290,16 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where tensors live; 'cuda' without a card is an "
                         "error (default: %(default)s)")
+    p.add_argument("--emit", default=None,
+                   help="write the freestanding torch module here")
+    p.add_argument("--emit-cpp", default=None, metavar="PATH",
+                   help="write a freestanding Kokkos C++ translation unit "
+                        "here ('-' for stdout)")
+    p.add_argument("--run-native", action="store_true",
+                   help="build + ctypes-load the emitted Kokkos C++ unit "
+                        "and diff its outputs against the compiled torch "
+                        "callable on the demo inputs (differential oracle; "
+                        "exit 1 on mismatch past 1e-4)")
     p.add_argument("--print-ir", action="store_true")
     p.add_argument("--print-ir-after-all", action="store_true",
                    help="dump IR after every pass (PassManager)")
@@ -247,6 +307,15 @@ def main(argv=None) -> int:
                    help="rank candidate tilings and gate fusion with the "
                         "roofline cost model (repro_torch.core.costmodel); "
                         "the decision lands on each op as a `cost` attr")
+    p.add_argument("--autotune", action="store_true",
+                   help="measure-verify the cost model's top-k tiling "
+                        "candidates on the real backend and device "
+                        "(implies --cost-model); winners persist in the "
+                        "tuning cache ($REPRO_TUNE_CACHE or "
+                        "~/.cache/repro-tune)")
+    p.add_argument("--autotune-top-k", type=int, default=3, metavar="K",
+                   help="how many model-ranked candidates --autotune "
+                        "measures (default: %(default)s)")
     p.add_argument("--analyze", action="store_true",
                    help="compile with verify=\"full\" (dialect verifier + "
                         "race/sync/scratch/paged-alias checkers between "
@@ -262,6 +331,8 @@ def main(argv=None) -> int:
             caps = ",".join(sorted(b.capabilities)) or "-"
             print(f"{b.name:8s}  caps=[{caps}]")
             print(f"{'':8s}  hierarchy: {b.hierarchy.summary()}")
+            print(f"{'':8s}  translate: "
+                  f"{b.resolve_translate_target().exec_space}")
             print(f"{'':8s}  pipeline=[{' -> '.join(b.pipeline)}]")
             if b.description:
                 print(f"{'':8s}  {b.description}")
@@ -271,6 +342,8 @@ def main(argv=None) -> int:
     opts = CompileOptions(target=args.target, device=args.device,
                           print_ir_after_all=args.print_ir_after_all,
                           cost_model=args.cost_model,
+                          autotune=args.autotune,
+                          autotune_top_k=args.autotune_top_k,
                           verify_ir="full" if args.analyze else False)
     if args.analyze:
         from repro_torch.core import analysis
@@ -286,10 +359,33 @@ def main(argv=None) -> int:
     mod = compile(fn, *specs, options=opts)
     if args.print_ir:
         print(mod.print_ir())
+    if args.emit:
+        print("wrote", mod.save_source(args.emit))
+    if args.emit_cpp == "-":
+        # stdout IS the artifact (redirectable straight into g++) — the
+        # demo run and its report would corrupt the translation unit
+        print(mod.emit_cpp_source())
+        return 0
+    if args.emit_cpp:
+        print("wrote", mod.save_cpp(args.emit_cpp))
     y = mod(*example)
     # the checksum is printed to 1e-5: f32 sums taken in another order
     # (torch's reduction vs the reference's) differ in the last ulps
     print("output shape:", tuple(y.shape), "sum:", round(float(y.sum()), 5))
+    if args.run_native:
+        import numpy as np
+
+        from repro_torch.core import native
+        nat = native.load_native(mod)
+        y_nat = nat(*example)
+        diff = float(np.max(np.abs(y.detach().cpu().numpy() - y_nat)))
+        flavour = "real Kokkos" if native.kokkos_root() else "executable stub"
+        print(f"native ({flavour}, {nat.path.name}): "
+              f"max |torch - native| = {diff:.3e}")
+        if diff > 1e-4:
+            print("NATIVE MISMATCH: emitted C++ disagrees with the "
+                  "compiled torch callable")
+            return 1
     return 0
 
 

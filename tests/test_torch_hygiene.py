@@ -1,5 +1,6 @@
 """The torch port stands alone: importing it pulls in neither JAX nor the
-reference package, and its sources (and chip_smoke.py) import neither;
+reference package, and its sources (with chip_smoke.py and the
+examples/*_torch.py) import neither;
 chip_smoke.py fails, printing no result, without a card or without the
 rest of the repository."""
 import os
@@ -38,7 +39,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
                     "repro_torch.optim.optimizer", "repro_torch.data",
                     "repro_torch.data.pipeline", "repro_torch.checkpoint",
                     "repro_torch.checkpoint.manager",
-                    "repro_torch.runtime.fault"):
+                    "repro_torch.runtime.fault",
+                    "repro_torch.core.translate", "repro_torch.core.native",
+                    "repro_torch.backends.openmp"):
         assert serving in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -72,6 +75,8 @@ def test_chip_smoke_fails_without_a_card_or_the_repository(where, tmp_path):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + [str(p.relative_to(ROOT))
+       for p in (ROOT / "examples").glob("*_torch.py")]
     + ["chip_smoke.py"]))
 def test_sources_import_neither_jax_nor_reference(path):
     text = (ROOT / path).read_text()
