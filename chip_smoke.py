@@ -207,6 +207,44 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     measurements (the same tiling, cost attrs and C++), the tuned SpMV
     within phase 5's 1e-4 relative of the plain version in f64 and the
     tuned mlp within 1e-5 of the untuned;
+18. (run after 17, before 15's lines) the MoE, encoder-decoder and vision
+    families at their published widths, each model seeded in its compute
+    dtype one layer at a time and freed before the next, at fixed depths
+    (``GROK_DEPTH``, ``BF16_CELLS``: full where the weights fit an 80 GB
+    card, the cut printed; a cell that does not fit the free memory
+    fails), each path's RMSNorm, decode attention and page gather held to
+    their plain versions at the path's shapes, bf16 and f32, at phase 7's
+    tolerances: (a) grok-1-314b (d_model 6144, 48 / 8 heads x 128, d_ff
+    32768, 8 experts top-2, vocab 131072, softcap 30) at 2 of 64 layers
+    (its f32 tree fits): the softcapped flash kernel at its prefill shape
+    against the plain version; ``serve_paged`` (the engine
+    of ``launch.serve.main --paged``) over 8 requests of 64-512 prompt
+    tokens and 16 new tokens in 4 slots, monolithic and with
+    ``prefill_chunk=128``, through flash attention, RMSNorm, the page
+    gather and decode attention with no plain call; each prompt's
+    prefill ms (the first's device busy ms and largest kernels from the
+    profiler), the decode step's host ms, device busy ms, launches and
+    largest kernels, the expert products' share of its device time
+    (``aten::einsum``, profiler) beside their padded rows, and one
+    layer's expert FFN at the step's buffer timed as the step fills it
+    (8 of 4096 rows) and with every row filled; the weights
+    widened to f32 in place, one decode step's bf16 logits on both
+    targets against the f32 step (phase 8's gate), then the requests'
+    f32 greedy tokens on ``cuda`` and ``torch``, equal; (b) whisper-base
+    (``launch.serve.main``'s wave loop in bf16, then f32 greedy tokens on
+    both targets over the reference's seeded frames, equal; its flash
+    kernel at Sq = 1 and at the encoder's 1500 x 1500 timed beside SDPA),
+    qwen2-vl-2b (the paged engine in bf16, then f32 greedy tokens after
+    the 256-patch vision prefix with its M-RoPE streams, equal), and
+    starcoder2-15b, qwen1.5-32b, qwen3-32b and arctic-480b in bf16 (the
+    paged engine over 4 requests, then one forward's logits on both
+    targets within 3e-2 of the largest; starcoder2's f32 greedy tokens
+    too, at 32 of 40 layers, where its f32 tree fits), every path launching its
+    kernels with no plain call; (c) ``kernels/ops.py::attention`` on the
+    ``torch`` target at 1 x 12 / 2 heads x 4096 x 128, f32 and bf16:
+    one call of ``kernels/chunked.py`` each, the flash kernel within
+    phase 7's tolerances of it, its time and peak memory beside the
+    dense plain block's;
 15. print the ``{"kernels": [...]}`` line (sixteen kernels: flash
     attention's bf16 and f32 kernels are two rows, and so are the bf16
     ``wgmma`` and the FFMA routes of ``kk.gemm`` and of the tiled batched
@@ -227,6 +265,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import shutil
 import statistics
@@ -294,6 +333,24 @@ MALA_POINTS = 8748
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 512
 TRAIN_F32_BATCH, TRAIN_F32_STEPS = 4, 3
 TRAIN_SMALL = (3, 4, 64)
+# phase 18: grok-1-314b's requests, decode slots and new tokens; each
+# cell's depth, fixed so that every run measures the same models (the
+# full depth where the weights fit, else the cut that they force: grok's
+# f32 tree, arctic's bf16 one, starcoder2's f32 one), and the GB its
+# caches and activations need beside the weights, checked against the
+# card's free memory before the cell (grok: the prefill's capacity
+# buffers, 32 groups x 8 experts x 128 slots at 32768 f32 columns;
+# arctic: 32 groups of 128 experts x 128 slots); the bf16 cells (arch,
+# depth, GB, prompt lengths lo..hi, forward tokens, the f32 greedy run's
+# depth or None); attention's length above the chunked threshold
+GROK_REQUESTS, GROK_SLOTS, GROK_GEN = 8, 4, 16
+GROK_DEPTH, GROK_RESERVE_GB = 2, 24
+WHISPER_DEPTH, VL_DEPTH, SMALL_RESERVE_GB = 6, 28, 8
+BF16_CELLS = (("starcoder2-15b", 40, 6, 32, 256, 256, 32),
+              ("qwen1.5-32b", 64, 6, 32, 256, 256, None),
+              ("qwen3-32b", 64, 6, 32, 256, 256, None),
+              ("arctic-480b", 1, 40, 16, 64, 61, None))
+LONG_S = 4096
 
 
 class KernelCount:
@@ -1091,6 +1148,657 @@ def translate_phase(ctx) -> dict:
     del ip, cols, vals, xv
     torch.cuda.empty_cache()
     shutil.rmtree(tmp)
+    return stats
+
+
+def families_phase(ctx) -> dict:
+    """Phase 18 (the module docstring): the MoE, encoder-decoder and
+    vision families on the card.  ``ctx`` carries main()'s helpers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.options import CompileOptions, use_options
+    from repro_torch.kernels import chunked
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_kv as pk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import frontends
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.scheduler import Request
+    reset_counts, counts, path_counts = (ctx["reset_counts"],
+                                         ctx["counts"], ctx["path_counts"])
+    time_ms, compare = ctx["time_ms"], ctx["compare"]
+    host_and_wall, device_busy = ctx["host_and_wall"], ctx["device_busy"]
+    dev, F = ctx["dev"], torch.nn.functional
+    bf = torch.bfloat16
+    stats = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+
+    def rand_t(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def on(target):
+        return use_options(CompileOptions(target=target))
+
+    def free() -> None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def launched(c) -> dict:
+        return {n: l for n, (l, _) in c.items() if l}
+
+    def check_path(label, c, need) -> None:
+        """Every kernel of ``need`` launched on the path, no plain call."""
+        if any(c[n][0] == 0 for n in need) or any(p for _, p in c.values()):
+            fail(f"{label} launched {launched(c)}: every one of {need} "
+                 "must launch, and no plain version may run")
+
+    def at_depth(arch, layers, itemsize, reserve_gb):
+        """The published config at ``layers`` of its layers (the phase's
+        fixed depths; widths as published); the phase fails unless its
+        weights at ``itemsize`` bytes a parameter and ``reserve_gb`` for
+        caches and activations fit the card's free memory."""
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        free_b = torch.cuda.mem_get_info()[0]
+        base, one = (build_model(dataclasses.replace(cfg, n_layers=n))
+                     .n_params() * itemsize for n in (0, 1))
+        weights = base + layers * (one - base)
+        what = (f"{weights / 1e9:.1f} GB of weights at {itemsize} bytes a "
+                f"parameter, {reserve_gb} GB kept for caches and "
+                f"activations, {free_b / 1e9:.1f} GB free")
+        if weights + reserve_gb * 1e9 > free_b:
+            fail(f"{arch} at {layers} layers does not fit: {what}")
+        full = base + cfg.n_layers * (one - base)
+        depth = "full depth" if layers == cfg.n_layers else \
+            (f"depth cut {cfg.n_layers} -> {layers} layers (the full "
+             f"depth's weights: {full / 1e9:.1f} GB)")
+        print(f"  {arch}: {depth}; {what}; widths as published", flush=True)
+        return dataclasses.replace(cfg, n_layers=layers)
+
+    def hold_path_kernels(what, norms=(), attn=None, paged=False) -> None:
+        """The path's kernels at its shapes against their plain versions
+        on the same inputs, bf16 and f32, at phase 7's tolerances (the
+        page gather exactly): RMSNorm over each (rows, width) of
+        ``norms``; with ``attn`` = (cfg, lengths, S), decode attention of
+        len(lengths) rows of cfg's heads over (B, Hkv, S, hd) at those
+        lengths and, when ``paged``, the page gather of such a pool (16
+        positions a page, pages in a shuffled order)."""
+        for dtype in (bf, torch.float32):
+            f32 = dtype == torch.float32
+            tag = "f32" if f32 else "bf16"
+            tol_rms, tol_att = (2e-5, 2e-4) if f32 else (1e-2, 2e-2)
+            for rows, width in norms:
+                x, w = rand_t((rows, width), dtype), rand_t((width,), dtype)
+                compare("rmsnorm", rn.rmsnorm(x, w), ref.rmsnorm(x, w),
+                        tol_rms, f"rmsnorm {what} {rows}x{width} {tag} "
+                        "(x max|plain|)", relative=True)
+            if attn is None:
+                continue
+            acfg, lengths, S = attn
+            b, hkv, hd = len(lengths), acfg.n_kv_heads, acfg.head_dim
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            q = rand_t((b, acfg.n_heads, hd), dtype)
+            kc, vc = (rand_t((b, hkv, S, hd), dtype) for _ in range(2))
+            compare("decode_attention", da.decode_attention(q, kc, vc, lens),
+                    ref.decode_attention(q, kc, vc, lens), tol_att,
+                    f"decode_attention {what} {b}x{acfg.n_heads}/{hkv}x{hd} "
+                    f"S={S} lengths {lengths} {tag}")
+            if paged:
+                per_slot = S // 16
+                pool = rand_t((1 + b * per_slot, hkv, 16, hd), dtype)
+                table = (torch.randperm(b * per_slot, generator=gen,
+                                        device=dev) + 1).to(torch.int32) \
+                    .view(b, per_slot)
+                compare("page_gather",
+                        pk.page_gather(pool, table, lens, block_size=16),
+                        pk.page_gather_torch(pool, table, lens,
+                                             block_size=16), 0.0,
+                        f"page_gather {what} pool {tuple(pool.shape)} table "
+                        f"{tuple(table.shape)} {tag}")
+        free()
+
+    def widen(tree) -> None:
+        """Each floating leaf of a tree widened to f32 in place, one leaf
+        at a time (the bf16 leaf freed as its f32 copy lands)."""
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                widen(v)
+            elif v.is_floating_point():
+                tree[k] = v.float()
+
+    def engine(model, params, reqs, slots, target, **kw) -> dict:
+        """``serve_paged`` over ``reqs`` (fresh copies), the pool sized as
+        ``launch.serve.main`` sizes it."""
+        per_req = -(-max(len(r.prompt) + r.gen_len for r in reqs) // 16)
+        fresh = [Request(rid=r.rid, prompt=r.prompt, gen_len=r.gen_len,
+                         arrival=0.0) for r in reqs]
+        return serve_mod.serve_paged(
+            model, params, fresh, n_slots=slots, block_size=16,
+            num_blocks=1 + per_req * (slots + 1),
+            options=CompileOptions(target=target), **kw)
+
+    def tokens_of(out) -> dict:
+        return {r.rid: list(r.tokens) for r in out["requests"]}
+
+    def requests(cfg, n, lo, hi, gen_len, seed) -> list:
+        rng = np.random.default_rng(seed)
+        return [Request(rid=i, prompt=rng.integers(
+                    1, cfg.vocab_size, int(rng.integers(lo, hi + 1))
+                ).astype(np.int32), gen_len=gen_len, arrival=0.0)
+                for i in range(n)]
+
+    def forward_gap(model, params, tokens) -> float:
+        """One forward's logits, cuda against torch, over the largest."""
+        out = {}
+        with torch.no_grad():
+            for target in ("cuda", "torch"):
+                with on(target):
+                    out[target] = model.forward(
+                        params, {"tokens": tokens})[0].float()
+        if not bool(torch.isfinite(out["cuda"]).all()):
+            fail("a forward's logits are not finite")
+        return float((out["cuda"] - out["torch"]).abs().max()) / \
+            float(out["torch"].abs().max())
+
+    # ------------------------------------------------------------ 18a
+    print("phase 18a: grok-1-314b at its published widths, depth cut to "
+          "hold its f32 tree (the f32 greedy gate)", flush=True)
+    cfg = at_depth("grok-1-314b", GROK_DEPTH, 4, GROK_RESERVE_GB)
+    model = build_model(cfg)
+    n_params = model.n_params()
+    print(f"  serving grok-1-314b at its published widths "
+          f"(d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"x {cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.n_experts} experts "
+          f"top-{cfg.experts_per_tok}, vocab {cfg.vocab_size}, softcap "
+          f"{cfg.attn_logit_softcap}), {cfg.n_layers} layers: "
+          f"{n_params / 1e9:.2f} B parameters, seeded bf16 leaf by leaf",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, dev, dtype=bf)
+    free()
+    print(f"  init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    # the softcapped flash kernel at grok's prefill shapes (the model's
+    # transposed (B, S, H, D) views), phase 7's tolerances
+    for dtype, tol, row in ((bf, 2e-2, "flash_attention"),
+                            (torch.float32, 2e-4, "flash_attention_f32")):
+        q = rand_t((1, 512, cfg.n_heads, cfg.head_dim), dtype).transpose(1, 2)
+        k = rand_t((1, 512, cfg.n_kv_heads, cfg.head_dim),
+                   dtype).transpose(1, 2)
+        v = rand_t((1, 512, cfg.n_kv_heads, cfg.head_dim),
+                   dtype).transpose(1, 2)
+        kw = {"causal": True, "logit_softcap": cfg.attn_logit_softcap}
+        compare(row, fa.flash_attention(q, k, v, **kw),
+                ref.attention(q, k, v, **kw), tol,
+                f"flash_attention grok 1x{cfg.n_heads}/{cfg.n_kv_heads}x512x"
+                f"{cfg.head_dim} softcap {cfg.attn_logit_softcap} "
+                f"{'bf16' if dtype == bf else 'f32'}")
+    reqs = requests(cfg, GROK_REQUESTS, 64, 512, GROK_GEN, 0)
+    # RMSNorm over the decode step's and the longest prefill's rows,
+    # decode attention over the paged step's gathered view at its first
+    # lengths, and the gather of that pool
+    per_slot = -(-(512 + GROK_GEN) // 16)
+    hold_path_kernels(
+        "grok", norms=((GROK_SLOTS, cfg.d_model), (512, cfg.d_model)),
+        attn=(cfg, [len(r.prompt) + 1 for r in reqs[:GROK_SLOTS]],
+              16 * per_slot), paged=True)
+    need = ("flash_attention", "rmsnorm", "page_gather", "decode_attention")
+    grok = {"layers": cfg.n_layers, "params": n_params,
+            "prompt_lens": [len(r.prompt) for r in reqs]}
+    print(f"  {GROK_REQUESTS} requests, prompts {grok['prompt_lens']} "
+          f"(MoE groups {[math.gcd(n, 32) for n in grok['prompt_lens']]}), "
+          f"{GROK_GEN} new tokens each, {GROK_SLOTS} slots", flush=True)
+    for label, kw in (("grok serve", {}),
+                      ("grok serve chunked", {"prefill_chunk": 128})):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = engine(model, params, reqs, GROK_SLOTS, "cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = path_counts[label] = counts()
+        check_path(label, c, need)
+        if out["tokens"] != GROK_REQUESTS * GROK_GEN:
+            fail(f"{label}: {out['tokens']} tokens")
+        grok[label] = {"steps": out["steps"], "tok_per_s": out["tok_per_s"],
+                       "wall_s": wall, "launches": launched(c)}
+        print(f"  [{label}{' --prefill-chunk 128' if kw else ''}] "
+              f"{GROK_REQUESTS} requests, {out['tokens']} tokens in "
+              f"{out['steps']} decode steps, {out['tok_per_s']:.1f} tok/s; "
+              f"{wall:.1f} s; launches {launched(c)}", flush=True)
+    prefill_ms = []
+    with on("cuda"):
+        def prefill(r):
+            toks = torch.as_tensor(r.prompt[None], device=dev)
+            return model.prefill(params, {"tokens": toks},
+                                 max_len=len(r.prompt))
+        prefill(reqs[0])
+        for r in reqs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(r)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    with on("cuda"):
+        busy, top, _ = device_busy(lambda: prefill(reqs[0]), n=2)
+    grok["prefill_ms"] = prefill_ms
+    grok["prefill_device_busy_ms"] = busy
+    grok["prefill_top_kernels_ms"] = top
+    print("  prefill ms per prompt (host clock, synchronized): "
+          + ", ".join(f"{n}: {t:.2f}" for n, t in
+                      zip(grok["prompt_lens"], prefill_ms))
+          + f"; mean {statistics.mean(prefill_ms):.2f}; the "
+          f"{grok['prompt_lens'][0]}-token prefill keeps the card busy "
+          f"{busy:.3f} ms (profiler)", flush=True)
+    print("    largest prefill kernels (ms): " + "; ".join(
+        f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
+
+    # a steady decode step: GROK_SLOTS slots at the first prompts' lengths
+    # over seeded pools
+    n_blocks = 1 + per_slot * (GROK_SLOTS + 1)
+    table = (torch.arange(GROK_SLOTS * per_slot, dtype=torch.int32,
+                          device=dev) + 1).view(GROK_SLOTS, per_slot)
+    lengths = torch.tensor([len(r.prompt) for r in reqs[:GROK_SLOTS]],
+                           dtype=torch.int32, device=dev)
+    token = torch.randint(1, cfg.vocab_size, (GROK_SLOTS,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    pools = model.init_paged_cache(n_blocks, 16, device=dev)
+    for key in pools:
+        pools[key] = [rand_t(p.shape, p.dtype) for p in pools[key]]
+
+    def step(target):
+        with on(target):
+            return model.paged_decode_step(params, token, pools, table,
+                                           lengths, block_size=16)[0]
+
+    step("cuda")
+    reset_counts()
+    logits_c = step("cuda").float()
+    torch.cuda.synchronize()
+    sc = path_counts["grok decode step"] = counts()
+    per_step = launched(sc)
+    want = {"decode_attention": cfg.n_layers, "page_gather": 2 * cfg.n_layers,
+            "rmsnorm": 2 * cfg.n_layers + 1}
+    if any(per_step.get(n) != w for n, w in want.items()) or \
+            any(p for _, p in sc.values()):
+        fail(f"grok decode step launched {per_step} with plain calls; want "
+             f"{want}")
+    logits_t = step("torch").float()
+    host_t, wall = host_and_wall(lambda: step("cuda"))
+    busy, top, by_name = device_busy(lambda: step("cuda"))
+    if busy <= 0:
+        fail("the profiler saw no kernel time in grok's decode step")
+    # the expert products' share: the einsums' device time (their GEMMs
+    # and operand copies) over the step's busy time
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step("cuda")
+        torch.cuda.synchronize()
+    ein = sum(getattr(ev, "device_time_total",
+                      getattr(ev, "cuda_time_total", 0.0))
+              for ev in prof.key_averages() if ev.key == "aten::einsum")
+    ein_ms = ein / 3 / 1e3
+    G = math.gcd(GROK_SLOTS, moe_mod.MOE_GROUPS)
+    C = moe_mod.capacity(GROK_SLOTS // G, cfg)
+    rows_run = G * cfg.n_experts * C
+    flops = 2.0 * rows_run * cfg.d_model * cfg.d_ff * 3 * cfg.n_layers
+    grok["decode_step"] = {
+        "host_ms": host_t, "wall_ms": wall, "device_busy_ms": busy,
+        "top_kernels_ms": top, "launches": per_step,
+        "expert_einsum_ms": ein_ms, "expert_share": ein_ms / busy,
+        "expert_rows_run": rows_run,
+        "expert_rows_real": GROK_SLOTS * cfg.experts_per_tok,
+        "expert_tflop": flops / 1e12}
+    print(f"  decode step ({GROK_SLOTS} slots): device busy {busy:.3f} ms "
+          f"(profiler), host {host_t:.3f} ms, synchronized wall {wall:.3f} "
+          f"ms (device busy {busy / wall:.0%}); launches per step {per_step}",
+          flush=True)
+    print(f"    expert products (aten::einsum, profiler): {ein_ms:.3f} ms a "
+          f"step, {ein_ms / busy:.0%} of the busy time; {G} groups x "
+          f"{cfg.n_experts} experts x {C} slots = {rows_run} rows a layer "
+          f"where {GROK_SLOTS * cfg.experts_per_tok} are real: "
+          f"{flops / 1e12:.1f} TFLOP a step, "
+          f"{flops / 1e12 / (ein_ms / 1e3 or float('inf')):.0f} TFLOP/s",
+          flush=True)
+    print("    largest kernels (ms per step): " + "; ".join(
+        f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
+    # the three expert products of one layer at the step's buffer shape:
+    # on the step's buffer (all but 8 of its rows zero) and on the same
+    # shape filled, which is the work the padding costs were every slot
+    # real
+    moe_p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    filled = rand_t((G, cfg.n_experts, C, cfg.d_model), bf)
+    sparse = torch.zeros_like(filled)
+    sparse.view(-1, cfg.d_model)[::C * cfg.n_experts // 2] = \
+        filled.view(-1, cfg.d_model)[:2 * G]
+    t_sparse, t_filled = (time_ms(lambda b=b: moe_mod.expert_ffn(moe_p, b,
+                                                                 cfg))
+                          for b in (sparse, filled))
+    grok["decode_step"]["experts_layer_ms"] = {"padded": t_sparse,
+                                               "filled": t_filled}
+    print(f"    one layer's expert FFN at the step's buffer ({G} x "
+          f"{cfg.n_experts} x {C} x {cfg.d_model}, bf16, CUDA events): "
+          f"{t_sparse:.3f} ms with the step's {2 * G} of {rows_run} rows "
+          f"filled, {t_filled:.3f} ms with every row filled", flush=True)
+    del filled, sparse, moe_p      # moe_p's views would keep the bf16 tree
+
+    # f32 compute: the weights and pools widened in place (the bf16 tree
+    # is freed leaf by leaf); the f32 step on the plain versions is the
+    # yardstick of both bf16 steps (phase 8's gate)
+    widen(params)
+    pools32 = {k: [p.float() for p in v] for k, v in pools.items()}
+    del pools
+    free()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = build_model(cfg32)
+    with on("torch"):
+        logits_f32 = model32.paged_decode_step(
+            params, token, pools32, table, lengths, block_size=16)[0]
+    del pools32
+    free()
+    err_c = (logits_c - logits_f32).abs()
+    err_t = (logits_t - logits_f32).abs()
+    print(f"  one decode step, bf16, against the f32 step: cuda target mean "
+          f"|err| {float(err_c.mean()):.5f} (max {float(err_c.max()):.4f}), "
+          f"torch target {float(err_t.mean()):.5f} (max "
+          f"{float(err_t.max()):.4f}) of max|logits| "
+          f"{float(logits_f32.abs().max()):.3f} (limit: cuda mean |err| <= "
+          "1.25 x torch's)", flush=True)
+    if not float(err_c.mean()) <= 1.25 * float(err_t.mean()) or \
+            not bool(torch.isfinite(logits_c).all()):
+        fail("grok's decode step on the cuda target is less accurate in "
+             "bf16 than on the torch target")
+    grok["bf16_step_mean_err"] = [float(err_c.mean()), float(err_t.mean())]
+    tokens32 = {}
+    for target in ("cuda", "torch"):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = engine(model32, params, reqs, GROK_SLOTS, target)
+        torch.cuda.synchronize()
+        c = counts()
+        if target == "cuda":
+            path_counts["grok f32"] = c
+            check_path("grok f32", c, at_f32(need))
+        tokens32[target] = tokens_of(out)
+        print(f"  f32 serve_paged on {target}: {out['tokens']} tokens in "
+              f"{out['steps']} steps, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    same = sum(tokens32["cuda"][i] == tokens32["torch"][i]
+               for i in tokens32["cuda"])
+    print(f"  f32 greedy tokens, cuda vs torch target: {same} of "
+          f"{GROK_REQUESTS} requests equal", flush=True)
+    if same != GROK_REQUESTS:
+        fail("grok: f32 greedy tokens differ between the cuda and torch "
+             "targets")
+    grok["f32_requests_equal"] = same
+    grok["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak memory {grok['peak_gib']:.1f} GiB", flush=True)
+    stats["grok-1-314b"] = grok
+    del params, model, model32, logits_c, logits_t, logits_f32
+    free()
+
+    # ------------------------------------------------------------ 18b
+    def greedy(model, params, batch, gen_len, target) -> list:
+        """Prefill + greedy decode on the contiguous cache → the tokens,
+        one row a prompt."""
+        S = batch["tokens"].shape[1]
+        out = []
+        with on(target):
+            logits, cache = model.prefill(params, batch,
+                                          max_len=S + gen_len)
+            for i in range(gen_len):
+                tok = torch.argmax(logits[:, :model.cfg.vocab_size],
+                                   -1).to(torch.int32)
+                out.append(tok)
+                logits, cache = model.decode_step(params, tok, cache, S + i)
+        return torch.stack(out, 1).cpu().tolist()
+
+    def f32_greedy(label, cfg, batch_of, gen_len, need) -> int:
+        """The f32 model's greedy tokens on ``cuda`` (counts read into
+        ``path_counts[label]``) and on ``torch``: equal row for row."""
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        model32 = build_model(cfg32)
+        params32 = model32.init(0, dev, dtype=torch.float32)
+        batch = batch_of(cfg32)
+        toks = {}
+        for target in ("cuda", "torch"):
+            reset_counts()
+            t0 = time.perf_counter()
+            toks[target] = greedy(model32, params32, batch, gen_len, target)
+            if target == "cuda":
+                c = path_counts[label] = counts()
+                check_path(label, c, at_f32(need))
+            print(f"  {label} on {target}: {len(toks[target])} x {gen_len} "
+                  f"tokens in {time.perf_counter() - t0:.1f} s", flush=True)
+        same = sum(a == b for a, b in zip(toks["cuda"], toks["torch"]))
+        print(f"  {label} greedy tokens, cuda vs torch target: {same} of "
+              f"{len(toks['cuda'])} rows equal", flush=True)
+        if same != len(toks["cuda"]):
+            fail(f"{label}: greedy tokens differ between the cuda and "
+                 "torch targets")
+        del params32, model32
+        free()
+        return same
+
+    def text_batch(cfg, rows, length):
+        rng = np.random.default_rng(0)
+        return {"tokens": torch.as_tensor(
+            rng.integers(1, cfg.vocab_size, (rows, length)),
+            dtype=torch.int32, device=dev)}
+
+    def serve_cli(label, argv, need) -> dict:
+        """``launch.serve.main(argv)`` with the counts zeroed before and
+        read after."""
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = path_counts[label] = counts()
+        line = buf.getvalue().strip()
+        print(f"  launch.serve.main({' '.join(argv)}): {line}; {wall:.1f} s "
+              f"with init; launches {launched(c)}", flush=True)
+        if rc != 0 or not re.search(r"\[serve(:continuous)?\] \d+ requests",
+                                    line):
+            fail(f"{label}: serve.main returned {rc}: {line!r}")
+        check_path(label, c, need)
+        free()
+        return {"line": line, "wall_s": wall, "launches": launched(c)}
+
+    # whisper-base, full depth: the wave loop in bf16, then f32 greedy
+    # tokens with the reference's seeded frames; its cross-attention at
+    # Sq = 1 over the 1500 frames timed beside SDPA
+    print("phase 18b: the other six configs at their published widths",
+          flush=True)
+    cfg = at_depth("whisper-base", WHISPER_DEPTH, 4, SMALL_RESERVE_GB)
+    # its decoder's self-attention over the wave loop's 32 + 16 cached
+    # positions (LayerNorm: no RMSNorm on this path)
+    hold_path_kernels("whisper", attn=(cfg, [33, 48], 48))
+    wh = {"serve": serve_cli(
+        "whisper serve",
+        ["--arch", "whisper-base", "--target", "cuda", "--requests", "4",
+         "--batch", "2", "--prompt-len", "32", "--gen-len", "16",
+         "--seed", "0"], ("flash_attention", "decode_attention"))}
+
+    def whisper_batch(cfg32):
+        b = text_batch(cfg32, 2, 32)
+        b["audio_frames"] = torch.as_tensor(
+            np.random.default_rng(0).standard_normal(
+                (2, cfg32.encoder_seq, cfg32.d_model)),
+            dtype=torch.float32, device=dev)
+        return b
+
+    wh["f32_rows_equal"] = f32_greedy(
+        "whisper f32", cfg, whisper_batch, 16,
+        ("flash_attention", "decode_attention"))
+    B_x, H_x, D_x, Se = 4, cfg.n_heads, cfg.head_dim, cfg.encoder_seq
+    for sq, what in ((1, "decode cross-attention, Sq = 1"),
+                     (Se, "encoder self-attention, non-causal")):
+        q = rand_t((B_x, sq, H_x, D_x), bf).transpose(1, 2)
+        k = rand_t((B_x, Se, H_x, D_x), bf).transpose(1, 2)
+        v = rand_t((B_x, Se, H_x, D_x), bf).transpose(1, 2)
+        compare("flash_attention", fa.flash_attention(q, k, v, causal=False),
+                ref.attention(q, k, v, causal=False), 2e-2,
+                f"flash_attention whisper {what}, {B_x}x{H_x}x{sq}x{Se}x"
+                f"{D_x} bf16")
+        t_k = time_ms(lambda: fa.flash_attention(q, k, v, causal=False))
+        t_p = time_ms(lambda: ref.attention(q, k, v, causal=False))
+        t_l = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bytes_n = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(bytes_n, 4.0 * B_x * H_x * sq * Se * D_x,
+                           PEAK_BF16_PER_S)
+        print(f"    {what}: kernel {t_k:.4f} ms, plain {t_p:.4f}, SDPA "
+              f"{t_l:.4f}, bound {b_ms:.6f} by {b_by}", flush=True)
+        wh[f"flash_sq{sq}"] = {"ms": t_k, "plain_ms": t_p, "sdpa_ms": t_l,
+                               "bound_ms": b_ms}
+    stats["whisper-base"] = wh
+
+    # qwen2-vl-2b, full depth: the paged engine in bf16 (text), then f32
+    # greedy tokens after the 256-patch vision prefix with its M-RoPE
+    # streams
+    cfg = at_depth("qwen2-vl-2b", VL_DEPTH, 4, SMALL_RESERVE_GB)
+    hold_path_kernels("qwen2-vl", norms=((4, cfg.d_model),),
+                      attn=(cfg, [33, 161, 321, 336], 336), paged=True)
+    need = ("flash_attention", "rmsnorm", "decode_attention")
+    vl = {"serve": serve_cli(
+        "qwen2-vl serve",
+        ["--arch", "qwen2-vl-2b", "--paged", "--target", "cuda",
+         "--requests", "8", "--slots", "4", "--prompt-len", "320",
+         "--gen-len", "16", "--ragged", "--seed", "0"],
+        need + ("page_gather",))}
+
+    def vision_batch(cfg32):
+        b = text_batch(cfg32, 2, frontends.VISION_PATCHES + 64)
+        b["vision_embeds"] = torch.as_tensor(
+            np.random.default_rng(1).standard_normal(
+                (2, frontends.VISION_PATCHES, cfg32.d_model)),
+            dtype=torch.float32, device=dev)
+        b["vision_positions"] = torch.as_tensor(
+            np.ascontiguousarray(frontends.make_vision_positions(2)),
+            device=dev)
+        return b
+
+    vl["f32_rows_equal"] = f32_greedy("qwen2-vl f32", cfg, vision_batch, 16,
+                                      need)
+    stats["qwen2-vl-2b"] = vl
+
+    # the bf16-only configs (and starcoder2's f32 tree at a cut depth):
+    # the paged engine over a few requests, then one forward's logits on
+    # cuda against torch within 3e-2 of the largest (phase 16b's bar)
+    for arch, depth, reserve_gb, lo, hi, fwd_len, f32_depth in BF16_CELLS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = at_depth(arch, depth, 2, reserve_gb)
+        reqs = requests(cfg, 4, lo, hi, 8, 0)
+        norms = ()
+        if cfg.norm == "rmsnorm":
+            norms = ((4, cfg.d_model), (fwd_len, cfg.d_model)) + \
+                (((fwd_len * cfg.n_heads, cfg.head_dim),) if cfg.qk_norm
+                 else ())
+        hold_path_kernels(
+            arch, norms=norms, paged=True,
+            attn=(cfg, [len(r.prompt) + 1 for r in reqs],
+                  16 * -(-max(len(r.prompt) + 8 for r in reqs) // 16)))
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(0, dev, dtype=bf)
+        free()
+        need = ("flash_attention", "page_gather", "decode_attention") + \
+            (("rmsnorm",) if cfg.norm == "rmsnorm" else ())
+        reset_counts()
+        out = engine(model, params, reqs, 4, "cuda")
+        torch.cuda.synchronize()
+        c = path_counts[f"{arch} serve"] = counts()
+        check_path(f"{arch} serve", c, need)
+        gap = forward_gap(model, params, text_batch(cfg, 1, fwd_len)
+                          ["tokens"])
+        st = {"layers": cfg.n_layers, "params": model.n_params(),
+              "active_params": model.n_active_params(),
+              "tokens": out["tokens"], "steps": out["steps"],
+              "tok_per_s": out["tok_per_s"], "launches": launched(c),
+              "logits_gap": gap, "s": time.perf_counter() - t0,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"  {arch} ({cfg.n_layers} layers, "
+              f"{st['params'] / 1e9:.2f} B parameters, "
+              f"{st['active_params'] / 1e9:.2f} B active), bf16: serve_paged "
+              f"{out['tokens']} tokens in {out['steps']} steps, "
+              f"{out['tok_per_s']:.1f} tok/s, launches {launched(c)}; "
+              f"forward of {fwd_len} tokens, cuda vs torch max |diff| "
+              f"{gap:.2e} of max|logits| (limit 3e-2); {st['s']:.1f} s",
+              flush=True)
+        if gap > 3e-2:
+            fail(f"{arch}: bf16 forward logits on cuda and torch differ by "
+                 f"{gap:.2e} of the largest")
+        del params, model
+        free()
+        if f32_depth:
+            cfg32 = at_depth(arch, f32_depth, 4, 4)
+            st["f32_layers"] = cfg32.n_layers
+            st["f32_rows_equal"] = f32_greedy(
+                f"{arch} f32", cfg32, lambda c: text_batch(c, 2, 64), 8,
+                tuple(n for n in need if n != "page_gather"))
+        stats[arch] = st
+
+    # ------------------------------------------------------------ 18c
+    print("phase 18c: attention above 2048 positions on the torch target "
+          "(kernels/chunked.py)", flush=True)
+    calls = []
+    real = chunked.flash_chunked_attention
+
+    def counted(*args, **kw):
+        calls.append(tuple(args[0].shape))
+        return real(*args, **kw)
+
+    chunked.flash_chunked_attention = counted
+    try:
+        for dtype, tol, row in ((torch.float32, 2e-4, "flash_attention_f32"),
+                                (bf, 2e-2, "flash_attention")):
+            q = rand_t((1, 12, LONG_S, 128), dtype)
+            k = rand_t((1, 2, LONG_S, 128), dtype)
+            v = rand_t((1, 2, LONG_S, 128), dtype)
+            free()
+            base = torch.cuda.memory_allocated()
+            peaks, outs = {}, {}
+            for form, fn in (
+                    ("chunked", lambda: kops.attention(
+                        q, k, v, options=CompileOptions(target="torch"))),
+                    ("dense", lambda: ref.attention(q, k, v))):
+                torch.cuda.reset_peak_memory_stats()
+                n0 = len(calls)
+                outs[form] = fn()
+                torch.cuda.synchronize()
+                peaks[form] = (torch.cuda.max_memory_allocated() - base) \
+                    / 2**20
+                if len(calls) - n0 != (form == "chunked"):
+                    fail(f"kops.attention at S = {LONG_S} on torch: "
+                         f"{len(calls) - n0} chunked calls for the {form} "
+                         "form")
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            compare(row, fa.flash_attention(q, k, v), outs["chunked"], tol,
+                    f"flash_attention against chunked attention 1x12/2x"
+                    f"{LONG_S}x128 causal {tag}")
+            t_c = time_ms(lambda: kops.attention(
+                q, k, v, options=CompileOptions(target="torch")))
+            print(f"    {tag}: chunked {t_c:.3f} ms, peak {peaks['chunked']:.1f}"
+                  f" MiB above the inputs; dense plain peak "
+                  f"{peaks['dense']:.1f} MiB", flush=True)
+            stats[f"chunked_{tag}"] = {"ms": t_c, "peak_mib": peaks}
+            del q, k, v, outs
+            free()
+    finally:
+        chunked.flash_chunked_attention = real
     return stats
 
 
@@ -3227,6 +3935,13 @@ def main() -> int:
         "path_counts": path_counts, "time_ms": time_ms, "compare": compare,
         "rn_fn": rn_fn, "rn_spec": rn_spec, "mm": mm})
 
+    # ---------------------------------------------------------------- 18
+    families_stats = families_phase({
+        "reset_counts": reset_counts, "counts": counts,
+        "path_counts": path_counts, "time_ms": time_ms, "compare": compare,
+        "host_and_wall": host_and_wall, "device_busy": device_busy,
+        "dev": dev})
+
     # ---------------------------------------------------------------- 15
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/gemm_tile.cuh",
@@ -3305,6 +4020,7 @@ def main() -> int:
                       "batched": batched_stats, "resnet18": resnet_stats,
                       "mala": mala_stats, "training": train_stats,
                       "translate": translate_stats,
+                      "families": families_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

@@ -18,11 +18,10 @@ Model code calls the model-facing wrappers (``attention``,
 ambient ``CompileOptions``' backend whether it wants kernels, as the
 reference does.  The scans return their final state beside y (the
 reference's wrappers return y alone and its models run a second, plain
-scan for the state).  The reference sends attention above
-``CHUNKED_ATTN_THRESHOLD`` on its library path to ``kernels/chunked.py``;
-that module is not ported yet, so the ``torch`` target computes every
-length with the dense plain version (the same values, more memory above
-2048 positions).
+scan for the state).  As in the reference, attention on the library
+path above ``CHUNKED_ATTN_THRESHOLD`` positions goes to
+``kernels/chunked.py`` (online softmax over chunk pairs, the flash
+backward), not to one dense softmax block.
 
 The sparse ``kk.spmv`` / ``kk.spmm`` take the composite value
 ``sparse.pack`` made (a ``CsrMatrix``) and skip the autograd wrapper, as
@@ -43,6 +42,7 @@ from repro_torch.core import refs
 from repro_torch.core.options import CompileOptions, current_options
 from repro_torch.core.registry import register
 from repro_torch.kernels import batched_gemm as _bg
+from repro_torch.kernels import chunked as _chunked
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
@@ -184,10 +184,18 @@ def _use_kernels(options: CompileOptions) -> bool:
     return options.backend().wants_kernels(options)
 
 
+CHUNKED_ATTN_THRESHOLD = 2048     # longest S computed as one dense block
+
+
 def attention(q, k, v, *, causal=True, window=None, scale=None,
               logit_softcap=None, options: Optional[CompileOptions] = None):
-    """GQA attention: the flash kernel where the backend wants kernels,
-    else one dense plain softmax block at every length."""
+    """GQA attention: the flash kernel where the backend wants kernels;
+    else one dense plain softmax block up to ``CHUNKED_ATTN_THRESHOLD``
+    positions and the chunked online-softmax form above it (O(chunk²)
+    live memory, where a dense (B, H, S, S) block grows as S²).  The
+    reference nests its chunked form under ``jax.checkpoint`` so that
+    its scans stack no residuals; the autograd function saves only
+    (q, k, v, out, lse) already."""
     options = options or current_options()
     kw = {"causal": causal, "window": window, "scale": scale,
           "logit_softcap": logit_softcap}
@@ -195,6 +203,8 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
         return _Kernelized.apply(functools.partial(_fa.flash_attention, **kw),
                                  functools.partial(ref.attention, **kw),
                                  q, k, v)
+    if max(q.shape[2], k.shape[2]) > CHUNKED_ATTN_THRESHOLD:
+        return _chunked.flash_chunked_attention(q, k, v, **kw)
     return ref.attention(q, k, v, **kw)
 
 

@@ -39,7 +39,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import all_arch_ids, get_config
 from repro_torch.core import ops as cops
 from repro_torch.core.options import CompileOptions, use_options
 from repro_torch.launch.steps import cast_compute
@@ -71,11 +71,15 @@ def _sample(logits: torch.Tensor, vocab: int, greedy: bool,
 
 def generate(model, params, prompts: np.ndarray, *, gen_len: int,
              max_len: int, quantized: bool = False, greedy: bool = True,
+             rng: Optional[np.random.Generator] = None,
              gen: Optional[torch.Generator] = None) -> np.ndarray:
     """Prefill + decode ``gen_len`` tokens for a batch of equal-length
     prompts on the contiguous cache.  Returns (B, gen_len) generated ids.
-    Non-greedy decode draws from ``gen`` (one generator per serving
-    seed, never one rebuilt per position)."""
+    An audio model (whisper) takes (B, encoder_seq, d_model) standard
+    normal frames drawn from ``rng`` (``default_rng(0)`` if none), as
+    the reference's frontend stub does.  Non-greedy decode draws from
+    ``gen`` (one generator per serving seed, never one rebuilt per
+    position)."""
     B, S = prompts.shape
     dev = _device_of(params)
     cfg = model.cfg
@@ -84,6 +88,11 @@ def generate(model, params, prompts: np.ndarray, *, gen_len: int,
         gen.manual_seed(0)
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32,
                                        device=dev)}
+    if cfg.frontend == "audio":
+        rng = rng or np.random.default_rng(0)
+        batch["audio_frames"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.float32, device=dev)
     logits, cache = model.prefill(params, batch, max_len=max_len,
                                   quantized=quantized)
     out = []
@@ -100,7 +109,8 @@ def serve_loop(model, params, *, n_requests: int, batch: int,
                prompt_len: int, gen_len: int, quantized: bool = False,
                greedy: bool = True, seed: int = 0) -> dict:
     """Fixed waves of ``batch`` requests over the contiguous cache; the
-    serving ``seed`` seeds the prompts and the one sampling generator."""
+    serving ``seed`` seeds the prompts (and, after them, an audio
+    model's frames, wave by wave) and the one sampling generator."""
     cfg = model.cfg
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=_device_of(params))
@@ -114,7 +124,7 @@ def serve_loop(model, params, *, n_requests: int, batch: int,
         prompts = np.stack(wave + [wave[-1]] * (batch - len(wave)))
         generate(model, params, prompts, gen_len=gen_len,
                  max_len=prompt_len + gen_len, quantized=quantized,
-                 greedy=greedy, gen=gen)
+                 greedy=greedy, rng=rng, gen=gen)
         done += len(wave)
         tokens_out += gen_len * len(wave)
     dt = time.monotonic() - t0
@@ -422,7 +432,9 @@ def serve_paged(model, params, requests: Sequence[Request], *,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--arch", default="qwen2-1.5b")
+    p.add_argument("--arch", default="qwen2-1.5b",
+                   help="one of the ten architecture ids: "
+                        + ", ".join(all_arch_ids()))
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--batch", "--slots", dest="batch", type=int, default=4,
@@ -477,7 +489,7 @@ def main(argv=None) -> int:
     device = options.resolve_device()
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg)
-    params = cast_compute(model.init(0, device), cfg.compute_dtype)
+    params = model.init(0, device, dtype=cfg.compute_dtype)
     if args.paged:
         reqs = make_requests(args.requests, prompt_len=args.prompt_len,
                              gen_len=args.gen_len, vocab=cfg.vocab_size,

@@ -20,15 +20,26 @@ class Model:
     spec: dict
 
     # -- params ---------------------------------------------------------------
-    def init(self, seed: int = 0, device="cuda"):
+    def init(self, seed: int = 0, device="cuda", dtype=None):
         """Seeded parameters on ``device`` (torch's random bits, the
-        reference's shapes, init kinds and tree paths)."""
+        reference's shapes, init kinds and tree paths), a stacked leaf
+        drawn one layer at a time; with ``dtype`` the floating leaves are
+        made in it, so the f32 tree is never held (``spec.init_params``)."""
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return init_params(self.spec, gen, device)
+        return init_params(self.spec, gen, device, dtype=dtype)
 
     def n_params(self) -> int:
         return param_count(self.spec)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return self.n_params()
+        E, k = cfg.n_experts, cfg.experts_per_tok
+        expert_p = 3 * cfg.d_model * cfg.d_ff * E * cfg.n_layers
+        return int(self.n_params() - expert_p + expert_p * k / E)
 
     # -- compute ---------------------------------------------------------------
     def forward(self, params, batch: dict, *, remat_policy: str = "none",

@@ -1,16 +1,19 @@
-"""Serving paths: prefill and single-token decode — the port of the
-reference's ``models/serve.py``: the dense, rwkv and hybrid families
-(MoE and encoder-decoder arrive with their slices).
+"""Serving paths: prefill and single-token decode for every family — the
+port of the reference's ``models/serve.py``.
 
 Cache layouts:
 
-* contiguous (dense): ``{"kv": {"k", "v"[, "k_scale", "v_scale"]}}``,
-  each ``(L, B, Hkv, S, hd)`` stacked over layers, as in the reference;
+* contiguous (dense, moe): ``{"kv": {"k", "v"[, "k_scale",
+  "v_scale"]}}``, each ``(L, B, Hkv, S, hd)`` stacked over layers, as in
+  the reference;
 * rwkv: ``{"shift1", "shift2": (L, B, D), "wkv": (L, B, H, K, V) f32}``;
 * hybrid, per pattern slot of ``groups`` (G groups) and ``rem`` (1):
   R — ``{"conv": (G, B, W-1, Dr) f32, "h": (G, B, Dr) f32}``; A — a
   ring buffer ``{"k", "v": (G, B, Hkv, W, hd)}`` over the local window,
   ``W = min(window, max_len)``, position p at slot p % W;
+* encdec: the decoder's self-attention ``"kv"`` as above, and the
+  cross-attention's ``"cross_k"``, ``"cross_v"``: ``(L, B, Se, Hkv,
+  hd)``, computed once from the encoder output at prefill;
 * block-paged: ``{"k": [pool per layer], "v": [...], ...}``, each pool
   ``(n_blocks, Hkv, block_size, hd)``.  The reference stacks the layers
   into one ``(L, n_blocks, ...)`` array that its jitted decode step
@@ -32,19 +35,32 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru_block as rg_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import apply_embed, apply_norm, cdt
-from repro_torch.models.transformer import (FAMILIES, _embed_input,
-                                            _lm_head, _positions_for,
-                                            layer_params, stack_trees, take)
+from repro_torch.models.transformer import (_cross_kv, _embed_input,
+                                            _inv_timescales, _lm_head,
+                                            _positions_for, _sinusoid,
+                                            encode, layer_params,
+                                            stack_trees, take)
 
 
-def _served(cfg, families=FAMILIES) -> None:
-    if cfg.family not in families:
+def _paged(cfg) -> None:
+    """The paged entry points serve the families with a KV cache to page:
+    the recurrent families keep none and raise, as in the reference, and
+    so does the encoder-decoder."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the port serves the {'/'.join(families)} families so far, "
-            f"not {cfg.family}")
+            f"paged KV cache supports dense/moe families, not {cfg.family}")
+
+
+def _ffn(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    """A decoder layer's feed-forward half: the gated MLP, or the MoE
+    (whose aux loss serving drops, as the reference's does)."""
+    if cfg.family == "moe":
+        return moe_mod.apply_moe(lp["moe"], h, cfg)[0]
+    return mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
 
 
 def _group_patterns(cfg) -> list:
@@ -62,7 +78,6 @@ def _group_patterns(cfg) -> list:
 
 def init_cache(cfg, batch: int, max_len: int, *, quantized: bool = False,
                device="cuda") -> Dict[str, Any]:
-    _served(cfg)
     L = cfg.n_layers
     if cfg.family == "rwkv":
         H, hd, D = cfg.n_rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
@@ -99,8 +114,13 @@ def init_cache(cfg, batch: int, max_len: int, *, quantized: bool = False,
         return out
     one = attn.init_kv_cache(cfg, batch, max_len, quantized=quantized,
                              device=device)
-    return {"kv": {k: a[None].expand((L,) + tuple(a.shape)).clone()
-                   for k, a in one.items()}}
+    cache = {"kv": {k: a[None].expand((L,) + tuple(a.shape)).clone()
+                    for k, a in one.items()}}
+    if cfg.family == "encdec":
+        shape = (L, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=cdt(cfg), device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=cdt(cfg), device=device)
+    return cache
 
 
 def init_paged_cache(cfg, n_blocks: int, block_size: int, *,
@@ -108,12 +128,8 @@ def init_paged_cache(cfg, n_blocks: int, block_size: int, *,
                      ) -> Dict[str, list]:
     """Block-paged KV cache for the serving engine: one pool per layer and
     key, all sharing one page table (every layer of a slot uses the same
-    block ids — the per-layer pools are parallel arenas).  The recurrent
-    families keep no KV cache to page and raise, as the reference does."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"paged KV cache supports dense/moe families, not {cfg.family}")
-    _served(cfg, ("dense",))
+    block ids — the per-layer pools are parallel arenas)."""
+    _paged(cfg)
     pools = [attn.init_paged_kv_cache(cfg, n_blocks, block_size,
                                       quantized=quantized, device=device)
              for _ in range(cfg.n_layers)]
@@ -155,7 +171,7 @@ def paged_decode_step(params, token: torch.Tensor, cache: Dict[str, list],
     slot — inactive slots pass any token and write the scrap block);
     table: (B, max_blocks) int32; lengths: (B,) int32 per-slot counts.
     Returns (logits (B, V), the new per-layer pools)."""
-    _served(cfg, ("dense",))
+    _paged(cfg)
     x = apply_embed(params["embed"], token[:, None], cfg)[:, 0]
     new: Dict[str, list] = {k: [] for k in cache}
     for i in range(cfg.n_layers):
@@ -166,7 +182,7 @@ def paged_decode_step(params, token: torch.Tensor, cache: Dict[str, list],
             lengths=lengths, block_size=block_size)
         x = x + a
         h = apply_norm(lp["ln2"], x[:, None, :], cfg.norm)
-        x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)[:, 0]
+        x = x + _ffn(lp, h, cfg)[:, 0]
         for k in new:
             new[k].append(pools[k])
     x = apply_norm(params["final_norm"], x[:, None, :], cfg.norm)
@@ -183,7 +199,7 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, start: int,
     pre-allocated.  Non-final chunks must be block-aligned (the engine
     enforces ``prefill_chunk % block_size == 0``); the final chunk may
     end mid-block.  Returns (last-token logits (V,), the new pools)."""
-    _served(cfg, ("dense",))
+    _paged(cfg)
     x = apply_embed(params["embed"], tokens[None], cfg)[0]     # (C, D)
     new: Dict[str, list] = {k: [] for k in cache}
     for i in range(cfg.n_layers):
@@ -194,7 +210,7 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, start: int,
             table_row=table_row, start=start, block_size=block_size)
         x = x + a
         h = apply_norm(lp["ln2"], x[None], cfg.norm)
-        x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)[0]
+        x = x + _ffn(lp, h, cfg)[0]
         for k in new:
             new[k].append(pools[k])
     x = apply_norm(params["final_norm"], x[None], cfg.norm)
@@ -208,9 +224,12 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, start: int,
 def prefill(params, batch: dict, cfg, *, max_len: int,
             quantized: bool = False) -> Tuple[torch.Tensor, dict]:
     """Run the full prompt; return (last-token logits, decode cache): the
-    prompt's KV entries allocated at ``max_len`` (dense), or the final
-    recurrent states and the local-attention rings (rwkv, hybrid)."""
-    _served(cfg)
+    prompt's KV entries allocated at ``max_len`` (dense, moe; encdec with
+    the cross-attention's k / v), or the final recurrent states and the
+    local-attention rings (rwkv, hybrid)."""
+    if cfg.family == "encdec":
+        return _prefill_encdec(params, batch, cfg, max_len=max_len,
+                               quantized=quantized)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_input(params, batch, cfg)
@@ -227,6 +246,14 @@ def prefill(params, batch: dict, cfg, *, max_len: int,
     return _lm_head(params, x[:, -1:, :], cfg)[:, 0], cache
 
 
+def _pad_kv(per_layer: list, S: int, max_len: int) -> dict:
+    """Per-layer (B, Hkv, S, hd) prefill KV stacked over layers and padded
+    to ``max_len`` positions."""
+    return {k: torch.nn.functional.pad(
+        torch.stack([kv[k] for kv in per_layer]), (0, 0, 0, max_len - S))
+        for k in per_layer[0]}
+
+
 def _prefill_dense(params, x, cfg, positions, max_len, quantized):
     S = x.shape[1]
     per_layer = []
@@ -238,13 +265,9 @@ def _prefill_dense(params, x, cfg, positions, max_len, quantized):
                                              quantized=quantized)
         x = x + a
         h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
+        x = x + _ffn(lp, h, cfg)
         per_layer.append(kv)
-    pad = max_len - S
-    kv_stack = {k: torch.nn.functional.pad(
-        torch.stack([kv[k] for kv in per_layer]), (0, 0, 0, pad))
-        for k in per_layer[0]}
-    return x, {"kv": kv_stack}
+    return x, {"kv": _pad_kv(per_layer, S, max_len)}
 
 
 def _prefill_rwkv(params, x, cfg):
@@ -306,12 +329,13 @@ def decode_step(params, token: torch.Tensor, cache: dict, length: int,
                 cfg) -> Tuple[torch.Tensor, dict]:
     """One decode step.  token: (B,) int32; length: tokens already in
     context.  Returns (logits (B, V), new cache)."""
-    _served(cfg)
     x = apply_embed(params["embed"], token[:, None], cfg)[:, 0]
     if cfg.family == "rwkv":
         x, new = _decode_rwkv(params, x, cache, cfg)
     elif cfg.family == "hybrid":
         x, new = _decode_hybrid(params, x, cache, length, cfg)
+    elif cfg.family == "encdec":
+        x, new = _decode_encdec(params, x, cache, length, cfg)
     else:
         x, new = _decode_dense(params, x, cache, length, cfg)
     x = apply_norm(params["final_norm"], x[:, None, :], cfg.norm)
@@ -328,7 +352,7 @@ def _decode_dense(params, x, cache, length, cfg):
                                             length=length)
         x = x + a
         h = apply_norm(lp["ln2"], x[:, None, :], cfg.norm)
-        x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)[:, 0]
+        x = x + _ffn(lp, h, cfg)[:, 0]
         per_layer.append(kv)
     return x, {"kv": stack_trees(per_layer)}
 
@@ -399,3 +423,72 @@ def _ring_decode(p: dict, x: torch.Tensor, cfg, st: dict, length: int
     out = kops.decode_attention(q, nk, nv, lengths)
     return out.reshape(B, cfg.q_dim) @ p["wo"].to(x.dtype), \
         {"k": nk, "v": nv}
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+def _prefill_encdec(params, batch, cfg, *, max_len: int, quantized: bool):
+    """Encode the audio frames, then run the decoder over the prompt:
+    the self-attention's cache and the cross-attention's k / v, each
+    layer's computed once here."""
+    enc = encode(params, batch["audio_frames"], cfg)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = apply_embed(params["embed"], tokens, cfg)
+    x = x + _sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
+    per_layer, cks, cvs = [], [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i, "dec_layers")
+        h = apply_norm(lp["ln1"], x, "layernorm")
+        a, kv = attn.apply_attention_prefill(lp["self_attn"], h, cfg,
+                                             positions=None,
+                                             quantized=quantized)
+        x = x + a
+        h = apply_norm(lp["ln_cross"], x, "layernorm")
+        ck, cv = _cross_kv(lp["cross_attn"], enc, cfg)
+        x = x + attn.apply_attention(lp["cross_attn"], h, cfg, kv=(ck, cv))
+        h = apply_norm(lp["ln2"], x, "layernorm")
+        x = x + mlp_mod.plain_mlp(lp["mlp"], h, "gelu")
+        per_layer.append(kv)
+        cks.append(ck)
+        cvs.append(cv)
+    x = apply_norm(params["final_norm"], x, "layernorm")
+    logits = _lm_head(params, x[:, -1:, :], cfg)[:, 0]
+    return logits, {"kv": _pad_kv(per_layer, S, max_len),
+                    "cross_k": torch.stack(cks),
+                    "cross_v": torch.stack(cvs)}
+
+
+def _sinusoid_at(pos: int, channels: int, dtype, device) -> torch.Tensor:
+    """One row of the sinusoidal table, at position ``pos``."""
+    ang = torch.tensor(float(pos), device=device) \
+        * _inv_timescales(channels, device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)]).to(dtype)
+
+
+def _decode_encdec(params, x, cache, length, cfg):
+    """The decoder at one position: its self-attention through the decode
+    cache (which, as the reference's, rotates q / k by RoPE at
+    ``length``, though the prefill gives them no positions) and the
+    cross-attention through flash attention at Sq = 1 against the stored
+    encoder k / v."""
+    x = x + _sinusoid_at(length, cfg.d_model, x.dtype, x.device)[None, :]
+    per_layer = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i, "dec_layers")
+        h = apply_norm(lp["ln1"], x[:, None, :], "layernorm")[:, 0]
+        kv = {k: a[i] for k, a in cache["kv"].items()}
+        a, kv = attn.apply_attention_decode(lp["self_attn"], h, cfg,
+                                            cache=kv, length=length)
+        x = x + a
+        h = apply_norm(lp["ln_cross"], x[:, None, :], "layernorm")
+        x = x + attn.apply_attention(
+            lp["cross_attn"], h, cfg,
+            kv=(cache["cross_k"][i], cache["cross_v"][i]))[:, 0]
+        h = apply_norm(lp["ln2"], x[:, None, :], "layernorm")
+        x = x + mlp_mod.plain_mlp(lp["mlp"], h, "gelu")[:, 0]
+        per_layer.append(kv)
+    return x, {"kv": stack_trees(per_layer), "cross_k": cache["cross_k"],
+               "cross_v": cache["cross_v"]}

@@ -68,14 +68,18 @@ def stack(spec_tree, n: int):
                                    s.init, s.dtype), spec_tree)
 
 
-def _init_leaf(spec: Spec, gen: torch.Generator, device) -> torch.Tensor:
+def _init_leaf(spec: Spec, gen: torch.Generator, device,
+               shape=None) -> torch.Tensor:
+    """The leaf, or (``shape``: the spec's trailing dims) one leading
+    entry of it, its scale taken from the whole spec."""
+    shape = spec.shape if shape is None else tuple(shape)
     kind, _, arg = spec.init.partition(":")
     if kind == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
     if kind == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        return torch.ones(shape, dtype=spec.dtype, device=device)
     if kind == "const":
-        return torch.full(spec.shape, float(arg), dtype=spec.dtype,
+        return torch.full(shape, float(arg), dtype=spec.dtype,
                           device=device)
     if kind in ("normal", "xavier"):
         if kind == "normal":
@@ -84,13 +88,13 @@ def _init_leaf(spec: Spec, gen: torch.Generator, device) -> torch.Tensor:
             fan_in = spec.shape[-2] if len(spec.shape) >= 2 \
                 else spec.shape[-1]
             std = (1.0 / fan_in) ** 0.5
-        return (torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=device) * std).to(spec.dtype)
     if kind == "uniform_decay":
         n = spec.shape[-1]
         base = torch.linspace(0.0, 1.0, n, dtype=torch.float32,
                               device=device)
-        return base.expand(spec.shape).to(spec.dtype).clone()
+        return base.expand(shape).to(spec.dtype).clone()
     raise ValueError(f"unknown init {spec.init!r}")
 
 
@@ -98,10 +102,19 @@ def _path_str(path) -> str:
     return "/".join(f"['{k}']" for k in path)
 
 
-def init_params(spec_tree, gen: torch.Generator, device="cuda") -> Any:
+def init_params(spec_tree, gen: torch.Generator, device="cuda",
+                dtype=None) -> Any:
     """Materialize a spec tree on ``device``; each leaf draws from its own
-    generator, seeded from ``gen``'s seed and the crc32 of its path."""
+    generator, seeded from ``gen``'s seed and the crc32 of its path.
+
+    A leaf stacked over layers is drawn in f32 one layer at a time, each
+    layer cast as it is drawn, so with ``dtype`` (a torch dtype or its
+    name: the floating leaves' dtype in place of the spec's) a model is
+    never held in f32, nor is a stacked leaf (a 64-layer MLP weight of
+    qwen3-32b is 33.5 GB in f32)."""
     seed = gen.initial_seed()
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
 
     def build(path, tree):
         if isinstance(tree, dict):
@@ -110,7 +123,14 @@ def init_params(spec_tree, gen: torch.Generator, device="cuda") -> Any:
         leaf_gen.manual_seed(
             (seed * 0x9E3779B1 + zlib.crc32(_path_str(path).encode()))
             % (2**63))
-        return _init_leaf(tree, leaf_gen, device)
+        want = dtype if dtype is not None and \
+            tree.dtype.is_floating_point else tree.dtype
+        if tree.axes[:1] != ("layers",):
+            return _init_leaf(tree, leaf_gen, device).to(want)
+        out = torch.empty(tree.shape, dtype=want, device=device)
+        for i in range(tree.shape[0]):
+            out[i] = _init_leaf(tree, leaf_gen, device, tree.shape[1:])
+        return out
 
     return build((), spec_tree)
 

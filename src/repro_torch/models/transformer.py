@@ -1,7 +1,8 @@
 """Model assembly — the port of the reference's ``models/transformer.py``:
-dense GQA decoders (qwen2 and its relatives), RWKV6 and the hybrid
-Griffin family (recurrentgemma); MoE and encoder-decoder arrive with
-their slices.
+dense GQA decoders (qwen2 and its relatives, qwen2-vl with its vision
+prefix), MoE decoders (grok-1, arctic), RWKV6, the hybrid Griffin
+family (recurrentgemma) and the encoder-decoder (whisper, its audio
+frames given).
 
 Layer parameters are stacked along a leading layers dim, as in the
 reference's tree (the hybrid's per pattern group, ``groups`` and the
@@ -22,10 +23,11 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru_block as rg_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (apply_embed, apply_norm,
-                                       apply_unembed, layernorm_spec,
+                                       apply_unembed, cdt, layernorm_spec,
                                        norm_spec)
 from repro_torch.models.spec import Spec, stack
 
@@ -36,6 +38,14 @@ def dense_layer_spec(cfg) -> dict:
             "attn": attn.attention_spec(cfg),
             "ln2": norm(cfg.d_model),
             "mlp": mlp_mod.gated_mlp_spec(cfg.d_model, cfg.d_ff)}
+
+
+def moe_layer_spec(cfg) -> dict:
+    norm = norm_spec if cfg.norm == "rmsnorm" else layernorm_spec
+    return {"ln1": norm(cfg.d_model),
+            "attn": attn.attention_spec(cfg),
+            "ln2": norm(cfg.d_model),
+            "moe": moe_mod.moe_spec(cfg)}
 
 
 def rwkv_layer_spec(cfg) -> dict:
@@ -59,15 +69,27 @@ def hybrid_group_spec(cfg, pattern) -> dict:
             for i, kind in enumerate(pattern)}
 
 
-FAMILIES = ("dense", "rwkv", "hybrid")     # the families ported so far
+def encoder_layer_spec(cfg) -> dict:
+    return {"ln1": layernorm_spec(cfg.d_model),
+            "attn": attn.attention_spec(cfg),
+            "ln2": layernorm_spec(cfg.d_model),
+            "mlp": mlp_mod.mlp_spec(cfg.d_model, cfg.d_ff)}
+
+
+def decoder_layer_spec(cfg) -> dict:
+    return {"ln1": layernorm_spec(cfg.d_model),
+            "self_attn": attn.attention_spec(cfg),
+            "ln_cross": layernorm_spec(cfg.d_model),
+            "cross_attn": attn.attention_spec(cfg),
+            "ln2": layernorm_spec(cfg.d_model),
+            "mlp": mlp_mod.mlp_spec(cfg.d_model, cfg.d_ff)}
+
+
+FAMILIES = ("dense", "moe", "rwkv", "hybrid", "encdec")
 
 
 def model_spec(cfg) -> dict:
-    """Full parameter spec tree for one architecture (the ``FAMILIES``)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the port models the {'/'.join(FAMILIES)} families so far, "
-            f"not {cfg.family}")
+    """Full parameter spec tree for one architecture."""
     s: Dict[str, Any] = {
         "embed": {"table": Spec((cfg.padded_vocab, cfg.d_model),
                                 ("vocab", "embed"), init="normal")},
@@ -77,16 +99,26 @@ def model_spec(cfg) -> dict:
     if not cfg.tie_embeddings:
         s["head"] = Spec((cfg.d_model, cfg.padded_vocab),
                          ("embed", "vocab"), init="normal")
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         s["layers"] = stack(dense_layer_spec(cfg), cfg.n_layers)
-    elif cfg.family == "rwkv":
+    elif fam == "moe":
+        s["layers"] = stack(moe_layer_spec(cfg), cfg.n_layers)
+    elif fam == "rwkv":
         s["layers"] = stack(rwkv_layer_spec(cfg), cfg.n_layers)
-    else:
+    elif fam == "hybrid":
         plen = len(cfg.pattern)
         n_groups, rem = divmod(cfg.n_layers, plen)
         s["groups"] = stack(hybrid_group_spec(cfg, cfg.pattern), n_groups)
         if rem:
             s["rem"] = stack(hybrid_group_spec(cfg, cfg.pattern[:rem]), 1)
+    elif fam == "encdec":
+        s["enc_layers"] = stack(encoder_layer_spec(cfg),
+                                cfg.n_encoder_layers)
+        s["enc_final_ln"] = layernorm_spec(cfg.d_model)
+        s["dec_layers"] = stack(decoder_layer_spec(cfg), cfg.n_layers)
+    else:
+        raise ValueError(fam)
     return s
 
 
@@ -168,6 +200,15 @@ def _dense_layer(lp, x, cfg, positions, window=None):
     h = apply_norm(lp["ln2"], x, cfg.norm)
     x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
     return x, _no_aux(x)
+
+
+def _moe_layer(lp, x, cfg, positions):
+    h = apply_norm(lp["ln1"], x, cfg.norm)
+    x = x + attn.apply_attention(lp["attn"], h, cfg, positions=positions,
+                                 causal=True)
+    h = apply_norm(lp["ln2"], x, cfg.norm)
+    moe_out, aux = moe_mod.apply_moe(lp["moe"], h, cfg)
+    return x + moe_out, aux
 
 
 def _rwkv_layer(lp, x, cfg):
@@ -256,15 +297,20 @@ def forward_train(params, batch: dict, cfg, *,
     the reference's ``lax.scan`` unroll; a Python loop has none, so it
     is taken and ignored."""
     if cfg.family not in FAMILIES:
-        raise ValueError(
-            f"training the {cfg.family} family needs its modules, which "
-            "are not ported yet (ROADMAP queue A4)")
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    if cfg.family == "encdec":
+        return _forward_encdec(params, batch, cfg,
+                               remat_policy=remat_policy)
     B, S = batch["tokens"].shape
     x = _embed_input(params, batch, cfg)
     positions = _positions_for(cfg, B, S, batch, x.device)
     if cfg.family == "dense":
         x, aux = _scan_layers(
             lambda lp, x: _dense_layer(lp, x, cfg, positions),
+            params["layers"], x, policy=remat_policy)
+    elif cfg.family == "moe":
+        x, aux = _scan_layers(
+            lambda lp, x: _moe_layer(lp, x, cfg, positions),
             params["layers"], x, policy=remat_policy)
     elif cfg.family == "rwkv":
         x, aux = _scan_layers(lambda lp, x: _rwkv_layer(lp, x, cfg),
@@ -284,6 +330,82 @@ def forward_train(params, batch: dict, cfg, *,
             aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _lm_head(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper): the audio frames are given, as the reference's
+# frontend stub gives them
+# ---------------------------------------------------------------------------
+
+def _encoder_layer(lp, x, cfg):
+    h = apply_norm(lp["ln1"], x, "layernorm")
+    x = x + attn.apply_attention(lp["attn"], h, cfg, positions=None,
+                                 causal=False)
+    h = apply_norm(lp["ln2"], x, "layernorm")
+    return x + mlp_mod.plain_mlp(lp["mlp"], h, "gelu"), _no_aux(x)
+
+
+def encode(params, frames: torch.Tensor, cfg, *,
+           remat_policy: Optional[str] = None) -> torch.Tensor:
+    """The encoder over (B, Se, D) audio frames: sinusoidal positions,
+    non-causal self-attention, the final LayerNorm."""
+    frames = frames.to(cdt(cfg))
+    enc = _sinusoid(frames.shape[1], cfg.d_model, frames.dtype,
+                    frames.device)[None] + frames
+    enc, _ = _scan_layers(lambda lp, x: _encoder_layer(lp, x, cfg),
+                          params["enc_layers"], enc, policy=remat_policy)
+    return apply_norm(params["enc_final_ln"], enc, "layernorm")
+
+
+def _forward_encdec(params, batch, cfg, *, remat_policy="nothing"):
+    enc = encode(params, batch["audio_frames"], cfg,
+                 remat_policy=remat_policy)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = apply_embed(params["embed"], tokens, cfg)
+    x = x + _sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
+
+    def dec_layer(lp, x):
+        h = apply_norm(lp["ln1"], x, "layernorm")
+        x = x + attn.apply_attention(lp["self_attn"], h, cfg,
+                                     positions=None, causal=True)
+        h = apply_norm(lp["ln_cross"], x, "layernorm")
+        x = x + attn.apply_attention(lp["cross_attn"], h, cfg,
+                                     kv=_cross_kv(lp["cross_attn"], enc,
+                                                  cfg))
+        h = apply_norm(lp["ln2"], x, "layernorm")
+        return x + mlp_mod.plain_mlp(lp["mlp"], h, "gelu"), _no_aux(x)
+
+    x, _ = _scan_layers(dec_layer, params["dec_layers"], x,
+                        policy=remat_policy)
+    x = apply_norm(params["final_norm"], x, "layernorm")
+    return _lm_head(params, x, cfg), _no_aux(x)
+
+
+def _cross_kv(p, enc, cfg):
+    """The cross-attention's (k, v), each (B, Se, Hkv, hd), from the
+    encoder output."""
+    B, Se, _ = enc.shape
+    dt = enc.dtype
+    k = (enc @ p["wk"].to(dt)).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc @ p["wv"].to(dt)).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _inv_timescales(channels: int, device) -> torch.Tensor:
+    """exp(-i · log(10000) / (C/2 - 1)) for i < C/2, in f32 throughout
+    as the reference computes it (log(10000) rounded to f32 first)."""
+    step = torch.log(torch.tensor(10000.0, device=device)) \
+        / max(channels // 2 - 1, 1)
+    dim = torch.arange(channels // 2, dtype=torch.float32, device=device)
+    return torch.exp(-dim * step)
+
+
+def _sinusoid(length: int, channels: int, dtype, device) -> torch.Tensor:
+    """(length, channels) sinusoidal positions: sines, then cosines."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    ang = pos * _inv_timescales(channels, device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1).to(dtype)
 
 
 # ---------------------------------------------------------------------------

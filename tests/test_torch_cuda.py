@@ -464,7 +464,8 @@ def test_sparse_kernels_refuse_ell_on_the_card(card, rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8])
 @pytest.mark.parametrize("geom", [(17, 2, 8, 16, 4, 4), (9, 1, 5, 3, 3, 2),
-                                  (65, 2, 16, 128, 8, 8)])
+                                  (65, 2, 16, 128, 8, 8),
+                                  (166, 8, 16, 128, 4, 33)])
 def test_page_gather_kernel_is_an_exact_copy(card, rng, geom, dtype):
     nb, h, bs, hd, s, mb = geom
     pool = torch.from_numpy(rng.integers(-100, 100, (nb, h, bs, hd))
@@ -523,7 +524,8 @@ _TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("shape", [(5, 64), (3, 33, 128), (1, 1, 256),
                                    (8, 1536), (2048, 1536), (7, 100),
                                    (4, 2560), (4, 4096), (1, 7168),
-                                   (2048, 4096)])
+                                   (2048, 4096), (512, 6144), (61, 7168),
+                                   (256, 5120), (256, 64, 128)])
 def test_rmsnorm_kernel_matches_plain(card, rng, shape, dtype):
     x = _randn(rng, shape, dtype=dtype)
     w = _randn(rng, (shape[-1],), dtype=dtype)
@@ -629,7 +631,8 @@ def _decode_case(rng, b, hq, hkv, s, d, dtype, lengths=None):
     (2, 2, 64, 32, 16), (12, 2, 2048, 128, None), (12, 2, 544, 128, 100),
     (4, 2, 37, 16, None), (6, 1, 300, 64, None), (16, 1, 2048, 256, None),
     (16, 1, 300, 256, 64), (12, 1, 100, 256, None), (20, 2, 128, 64, None),
-    (9, 1, 70, 192, None)])
+    (9, 1, 70, 192, None), (8, 8, 48, 64, None), (48, 8, 528, 128, None),
+    (40, 40, 272, 128, None), (56, 8, 80, 128, None)])
 def test_decode_attention_kernel_matches_plain(card, rng, hq, hkv, s, d,
                                                window, dtype):
     q, k, v, lengths = _decode_case(rng, 3, hq, hkv, s, d, dtype)
@@ -807,6 +810,26 @@ def test_flash_attention_kernel_matches_plain(card, rng, hq, hkv, sq, skv,
                         logit_softcap=softcap)
     want = ref.attention(q, k, v, causal=causal, window=window,
                          logit_softcap=softcap)
+    tol = _TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,d,softcap", [
+    (1, 8, 8, 1500, 1500, False, 64, None),     # whisper's encoder
+    (2, 8, 8, 1, 1500, False, 64, None),        # its decode cross-attention
+    (2, 8, 8, 37, 1500, False, 64, None),       # its prefill cross-attention
+    (1, 48, 8, 512, 512, True, 128, 30.0),      # grok-1's prefill
+    (2, 48, 8, 129, 129, True, 128, 30.0)])
+def test_flash_attention_kernel_at_the_new_families_shapes(
+        card, rng, b, hq, hkv, sq, skv, causal, d, softcap, dtype):
+    """The shapes the moe / encdec families give the flash kernels, with
+    k / v as the model's transposed (B, S, H, D) views."""
+    q = _randn(rng, (b, sq, hq, d), dtype=dtype).transpose(1, 2)
+    k = _randn(rng, (b, skv, hkv, d), dtype=dtype).transpose(1, 2)
+    v = _randn(rng, (b, skv, hkv, d), dtype=dtype).transpose(1, 2)
+    got = _flash_launch(q, k, v, causal=causal, logit_softcap=softcap)
+    want = ref.attention(q, k, v, causal=causal, logit_softcap=softcap)
     tol = _TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 

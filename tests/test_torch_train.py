@@ -190,11 +190,16 @@ def test_remat_policy_names():
 
 
 def test_families_not_ported_raise():
+    """Every family of the reference is ported (queue A4); a family the
+    reference does not model raises, as its ``forward_train`` does."""
+    assert ttfm.FAMILIES == ("dense", "moe", "rwkv", "hybrid", "encdec")
     cfg = dataclasses.replace(tget_config("qwen2-1.5b", reduced=True),
-                              family="moe")
-    with pytest.raises(ValueError, match="A4"):
+                              family="mamba")
+    with pytest.raises(ValueError, match="mamba"):
         ttfm.forward_train(
             {}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)}, cfg)
+    with pytest.raises(ValueError, match="mamba"):
+        ttfm.model_spec(cfg)
 
 
 # -- the train step -------------------------------------------------------
