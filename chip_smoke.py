@@ -245,6 +245,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     one call of ``kernels/chunked.py`` each, the flash kernel within
     phase 7's tolerances of it, its time and peak memory beside the
     dense plain block's;
+19. (run after 18, before 15's lines) distribution and the dry-run: (a)
+    ``repro_torch.benchmarks.machine_peaks`` into a temporary tune cache,
+    each ceiling printed beside the data-sheet peaks below (fail unless
+    every ceiling is > 0 and the HBM, f32 and bf16 ones are at most 105%
+    of the data sheet); then ``python -m repro_torch.launch.dryrun`` for
+    qwen2-1.5b's four cells on the 16 x 16 fake-group mesh, one process a
+    cell, running on the host's CPU beside (b)-(d); (b) phase 16's first
+    ``MESH_STEPS`` steps (its seed, batches and hyperparameters) unmeshed
+    and as DTensors on a 1 x 1 (data, model) mesh over a world-size-1
+    NCCL group (state by ``train_state_shardings``, batch by
+    ``batch_shardings``): losses and gradient norms within 1e-6 relative
+    of the unmeshed ones and of phase 16's (bitwise equality printed),
+    the bf16 flash and RMSNorm kernels launched and no plain call; (c)
+    that state saved and ``restore(shardings=...)``-d onto the mesh,
+    every leaf bit for bit with its placements; (d) ``make_prefill_step``
+    + ``make_decode_step`` on the mesh in f32 over prompts of
+    ``SERVE19_PROMPTS`` tokens and ``SERVE19_GEN`` decode steps: the
+    greedy tokens equal to ``launch.serve.generate``'s unmeshed, decode
+    attention, f32 flash and RMSNorm launched with no plain call, and
+    each held to its plain version at these shapes (phase 7's
+    tolerances); (e) phase 16's cell (8 x 512, one device) counted on meta
+    tensors by ``launch/opcount.py`` (the ``torch`` target's plain
+    versions): its roofline time, max(compute, memory) over (a)'s bf16
+    and HBM ceilings, beside phase 16's measured step walls (fail if the
+    bound exceeds the fastest), then each dry-run cell's status, FLOPs,
+    bytes and collective bytes per device, memory, dominant term and
+    useful-FLOPs ratio (fail on an errored cell or a record that did not
+    read (a)'s peaks), and the phase's wall time;
 15. print the ``{"kernels": [...]}`` line (sixteen kernels: flash
     attention's bf16 and f32 kernels are two rows, and so are the bf16
     ``wgmma`` and the FFMA routes of ``kk.gemm`` and of the tiled batched
@@ -351,6 +379,13 @@ BF16_CELLS = (("starcoder2-15b", 40, 6, 32, 256, 256, 32),
               ("qwen3-32b", 64, 6, 32, 256, 256, None),
               ("arctic-480b", 1, 40, 16, 64, 61, None))
 LONG_S = 4096
+# phase 19: the meshed training steps (phase 16's first), the meshed
+# serving prompts and decode steps, the dry-run's qwen2-1.5b cells (each
+# in a process of its own) and how long they may take
+MESH_STEPS = 2
+SERVE19_PROMPTS, SERVE19_GEN = (64, 200, 384, 512), 16
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRY_TIMEOUT_S = 600
 
 
 class KernelCount:
@@ -1799,6 +1834,396 @@ def families_phase(ctx) -> dict:
             free()
     finally:
         chunked.flash_chunked_attention = real
+    return stats
+
+
+def _whole(t):
+    """A DTensor's global value (the tensor itself otherwise)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _bits(t):
+    """A tensor's bits as integers of its width (NaNs compare too)."""
+    import torch
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32, 8: torch.int64}
+                               [t.element_size()])
+
+
+def distribution_phase(ctx) -> dict:
+    """Phase 19 (the module docstring): distribution and the dry-run."""
+    import logging
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.benchmarks import machine_peaks
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel
+    from repro_torch.core.options import CompileOptions, use_options
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import dryrun, opcount
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.models.spec import tree_leaves, tree_leaves_with_path
+    from repro_torch.optim import OptimizerConfig
+
+    reset_counts, counts, path_counts, compare, dev = (
+        ctx["reset_counts"], ctx["counts"], ctx["path_counts"],
+        ctx["compare"], ctx["dev"])
+    train16 = ctx.get("train_stats", {}).get("qwen2_bf16")
+    # DTensor warns of every two-dim redistribution on the 16 x 16 mesh
+    logging.getLogger("torch.distributed.tensor._redistribute") \
+        .setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    card = card_line()
+    stats = {}
+    tmp = tempfile.mkdtemp(prefix="lapis_phase19_")
+    procs = {}
+    try:
+        # (a) the card's ceilings, into a temporary tune cache
+        tune = os.path.join(tmp, "tune")
+        print("phase 19a: repro_torch.benchmarks.machine_peaks on the card, "
+              f"into a temporary tune cache ({card})", flush=True)
+        prev = os.environ.get("REPRO_TUNE_CACHE")
+        os.environ["REPRO_TUNE_CACHE"] = tune
+        try:
+            t0 = time.perf_counter()
+            machine_peaks.main(["--force"])
+            peaks_s = time.perf_counter() - t0
+        finally:
+            if prev is None:
+                del os.environ["REPRO_TUNE_CACHE"]
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = prev
+        peaks = costmodel.load_peaks(root=tune)
+        sheet = {"bandwidth_bytes_per_s": PEAK_BYTES_PER_S,
+                 "flops_per_s": PEAK_FP32_PER_S,
+                 "bf16_flops_per_s": PEAK_BF16_PER_S}
+        values = peaks.to_dict()
+        for name in ("bandwidth_bytes_per_s",
+                     "scratch_bandwidth_bytes_per_s", "flops_per_s",
+                     "bf16_flops_per_s", "launch_overhead_s",
+                     "dispatch_overhead_s"):
+            v = values[name]
+            beside = (f" = {v / sheet[name]:.1%} of the data sheet's "
+                      f"{sheet[name]:.3e}" if name in sheet else "")
+            print(f"  {name} {v:.4e}{beside}", flush=True)
+            if not v > 0:
+                fail(f"phase 19a: {name} measured {v}")
+            if name in sheet and v > 1.05 * sheet[name]:
+                fail(f"phase 19a: {name} {v:.4e} is above 105% of the "
+                     f"data sheet's {sheet[name]:.4e}: a timing fault")
+        if not peaks.measured:
+            fail("phase 19a: the tune cache holds no measured peaks")
+        stats["peaks"] = {**values, "seconds": peaks_s,
+                          "data_sheet": sheet}
+
+        # the dry-run's cells, each in a process of its own (a fake
+        # group of 256 ranks), running beside 19b-19d on the host's CPU
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_TUNE_CACHE=tune)
+        dry_out = os.path.join(tmp, "dryrun")
+        t_dry = time.perf_counter()
+        for shape in DRY_SHAPES:
+            log = open(os.path.join(tmp, f"dryrun_{shape}.log"), "w")
+            procs[shape] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 "qwen2-1.5b", "--shape", shape, "--mesh", "single",
+                 "--out", dry_out], env=env, stdout=log,
+                stderr=subprocess.STDOUT), log)
+
+        # (b) phase 16's first steps on a 1 x 1 mesh over NCCL
+        cfg = get_config("qwen2-1.5b")
+        L = cfg.n_layers
+        hp = steps_mod.TrainHParams(
+            optimizer=OptimizerConfig(total_steps=TRAIN_STEPS,
+                                      warmup_steps=1),
+            remat_policy="none")
+        model = build_model(cfg)
+        step = steps_mod.make_train_step(model, hp)
+        data = SyntheticLMDataset(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH), device=dev)
+        batches = [{k: dv.device() for k, dv in
+                    data.batch_dualview(i).items()}
+                   for i in range(MESH_STEPS)]
+        print(f"phase 19b: qwen2-1.5b at full width ({L} layers), "
+              f"{MESH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} (phase "
+              "16's seed and batches, bf16 over an f32 master, AdamW) "
+              "unmeshed, then as DTensors on a 1 x 1 (data, model) mesh "
+              "over a world-size-1 NCCL group", flush=True)
+        state = steps_mod.init_train_state(model, hp, 0, dev)
+        plain_run = []
+        with use_options(CompileOptions(target="cuda")):
+            for b in batches:
+                state, met = step(state, b)
+                plain_run.append((float(met["loss"]),
+                                  float(met["grad_norm"])))
+        del state, met
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh = mesh_mod.make_device_mesh("cuda")
+        mesh_s = time.perf_counter() - t0
+        shardings = steps_mod.train_state_shardings(mesh, model, hp)
+        meshed, walls = [], []
+        reset_counts()
+        with shd.use_mesh(mesh), use_options(CompileOptions(target="cuda")):
+            dstate = shd.distribute_tree(
+                steps_mod.init_train_state(model, hp, 0, dev), shardings)
+            for b in batches:
+                db = shd.distribute_tree(
+                    b, steps_mod.batch_shardings(mesh, b))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dstate, met = step(dstate, db)
+                meshed.append((float(_whole(met["loss"])),
+                               float(_whole(met["grad_norm"]))))
+                walls.append((time.perf_counter() - t0) * 1e3)
+        c = path_counts["train qwen2-1.5b meshed"] = counts()
+        got = {n: c[n][0] for n in ("flash_attention", "rmsnorm")}
+        want = {"flash_attention": L * MESH_STEPS,
+                "rmsnorm": (2 * L + 1) * MESH_STEPS}
+        plain_calls = {n: p for n, (_, p) in c.items() if p}
+        bitwise = meshed == plain_run
+        p16 = train16["losses"][:MESH_STEPS] if train16 else None
+        print(f"  NCCL group + mesh {mesh_s:.2f} s; placements of "
+              f"layers/attn/wq: "
+              f"{dstate['params']['layers']['attn']['wq'].placements}; "
+              f"meshed (loss, grad norm) {meshed}, unmeshed {plain_run}, "
+              f"phase 16's losses {p16}; bitwise equal: {bitwise}; meshed "
+              f"step walls {', '.join(f'{w:.1f}' for w in walls)} ms; "
+              f"launches {got}, plain calls {plain_calls} ({card})",
+              flush=True)
+        if plain_calls:
+            fail(f"phase 19b: a plain version ran on the card: "
+                 f"{plain_calls}")
+        if got != want:
+            fail(f"phase 19b: the meshed steps launched {got}, want {want}")
+        for (ml, mg), (ul, ug) in zip(meshed, plain_run):
+            if abs(ml - ul) > 1e-6 * abs(ul) or abs(mg - ug) > 1e-6 * abs(ug):
+                fail("phase 19b: the meshed losses or gradient norms are "
+                     "more than 1e-6 from the unmeshed ones")
+        if p16 is not None and any(abs(ml - l) > 1e-6 * abs(l) for
+                                   (ml, _), l in zip(meshed, p16)):
+            fail("phase 19b: the meshed losses are more than 1e-6 from "
+                 "phase 16's")
+        stats["meshed_train"] = {"meshed": meshed, "unmeshed": plain_run,
+                                 "phase16_losses": p16,
+                                 "bitwise": bitwise, "wall_ms": walls,
+                                 "launches": got, "mesh_s": mesh_s}
+
+        # (c) that state saved, then restored onto the mesh
+        ck = CheckpointManager(os.path.join(tmp, "ckpt"))
+        t0 = time.perf_counter()
+        ck.save(MESH_STEPS, dstate)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, at = ck.restore(shardings=shardings)
+        restore_s = time.perf_counter() - t0
+        pairs = list(zip(tree_leaves_with_path(back),
+                         tree_leaves(dstate)))
+        n_bytes = sum(b.to_local().numel() * b.element_size()
+                      for _, b in pairs)
+        for (path, a), b in pairs:
+            if type(a) is not type(b) or a.placements != b.placements or \
+                    a.dtype != b.dtype or a.shape != b.shape or \
+                    not torch.equal(_bits(a.to_local()),
+                                    _bits(b.to_local())):
+                fail(f"phase 19c: leaf {'/'.join(path)} did not come back "
+                     "bit for bit with its placements")
+        print(f"phase 19c: the meshed state ({len(pairs)} leaves, "
+              f"{n_bytes / 2**30:.2f} GiB) saved in {save_s:.1f} s, "
+              f"restore(shardings=...) in {restore_s:.1f} s at step {at}: "
+              "every leaf bit for bit with its placements", flush=True)
+        stats["restore"] = {"leaves": len(pairs), "bytes": n_bytes,
+                            "save_s": save_s, "restore_s": restore_s}
+        del back, pairs, dstate, met, batches, db
+        shutil.rmtree(os.path.join(tmp, "ckpt"), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (d) the serving steps on the mesh, f32 compute
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        model = build_model(cfg32)
+        params = model.init(0, dev)
+        rng = np.random.default_rng(19)
+        prompts = [rng.integers(1, cfg32.vocab_size, n)
+                   for n in SERVE19_PROMPTS]
+        print(f"phase 19d: make_prefill_step + make_decode_step on the mesh,"
+              f" qwen2-1.5b f32, prompts of {SERVE19_PROMPTS} tokens, "
+              f"{SERVE19_GEN} decode steps each, against launch.serve's "
+              "generate unmeshed", flush=True)
+        with use_options(CompileOptions(target="cuda")):
+            want_tok = [serve_cli.generate(model, params, p[None],
+                                           gen_len=SERVE19_GEN,
+                                           max_len=len(p) + SERVE19_GEN)
+                        for p in prompts]
+        dparams = shd.distribute_tree(params, shd.param_shardings(
+            mesh, model.abstract(), model.axes()))
+        decode = steps_mod.make_decode_step(model)
+        got_tok, step_ms = [], []
+        reset_counts()
+        with shd.use_mesh(mesh), use_options(CompileOptions(target="cuda")):
+            for p in prompts:
+                S = len(p)
+                prefill = steps_mod.make_prefill_step(
+                    model, max_len=S + SERVE19_GEN)
+                batch = {"tokens": torch.as_tensor(p[None], dtype=torch.int32,
+                                                   device=dev)}
+                logits, cache = prefill(dparams, shd.distribute_tree(
+                    batch, steps_mod.batch_shardings(mesh, batch)))
+                toks, length = [], S
+                for _ in range(SERVE19_GEN):
+                    tok = serve_cli._sample(_whole(logits), cfg32.vocab_size,
+                                            True, None)
+                    toks.append(tok.cpu().numpy())
+                    t0 = time.perf_counter()
+                    logits, cache = decode(dparams, shd.distribute(
+                        tok, shd.batch_sharding(mesh, (1,))), cache, length)
+                    _whole(logits)
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    length += 1
+                got_tok.append(np.stack(toks, axis=1))
+        c = path_counts["serve qwen2-1.5b meshed f32"] = counts()
+        launched = {n: c[n][0] for n in ("decode_attention",
+                                         "flash_attention_f32", "rmsnorm")}
+        plain_calls = {n: p for n, (_, p) in c.items() if p}
+        same = all(np.array_equal(a, b) for a, b in zip(got_tok, want_tok))
+        print(f"  greedy tokens equal to the unmeshed path's: {same}; "
+              f"launches {launched}, plain calls {plain_calls}; meshed "
+              f"decode step median {statistics.median(step_ms):.1f} ms "
+              f"(host clock, DTensor dispatch included; {card})", flush=True)
+        if not same:
+            fail(f"phase 19d: meshed tokens {got_tok} != unmeshed "
+                 f"{want_tok}")
+        if plain_calls or not all(launched.values()):
+            fail(f"phase 19d: launches {launched}, plain calls "
+                 f"{plain_calls}: want each kernel launched, no plain call")
+        # each kernel against its plain version at these shapes
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(19)
+
+        def rand_t(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        S = max(SERVE19_PROMPTS)
+        q = rand_t(1, cfg.n_heads, cfg.head_dim)
+        kc, vc = (rand_t(1, cfg.n_kv_heads, S + SERVE19_GEN, cfg.head_dim)
+                  for _ in range(2))
+        lens = torch.tensor([S + 1], dtype=torch.int32, device=dev)
+        compare("decode_attention", da.decode_attention(q, kc, vc, lens),
+                ref.decode_attention(q, kc, vc, lens), 2e-4,
+                f"decode_attention 1 x {cfg.n_heads}/{cfg.n_kv_heads} x "
+                f"{cfg.head_dim} over {S + 1} of {S + SERVE19_GEN} f32")
+        q = rand_t(1, cfg.n_heads, S, cfg.head_dim)
+        k, v = (rand_t(1, cfg.n_kv_heads, S, cfg.head_dim)
+                for _ in range(2))
+        compare("flash_attention_f32", fa.flash_attention(q, k, v,
+                                                          causal=True),
+                ref.attention(q, k, v, causal=True), 2e-4,
+                f"flash_attention 1 x {cfg.n_heads}/{cfg.n_kv_heads} x {S} x "
+                f"{cfg.head_dim} causal f32")
+        x, w = rand_t(1, S, cfg.d_model), rand_t(cfg.d_model)
+        compare("rmsnorm", rn.rmsnorm(x, w), ref.rmsnorm(x, w), 2e-5,
+                f"rmsnorm 1 x {S} x {cfg.d_model} f32 (x max|plain|)",
+                relative=True)
+        stats["meshed_serve"] = {"tokens_equal": same, "launches": launched,
+                                 "decode_step_ms": step_ms}
+        del params, dparams, logits, cache, q, k, v, kc, vc, x, w
+        torch.cuda.empty_cache()
+
+        # (e) phase 16's cell on one device, counted on meta tensors, and
+        # the dry-run's cells on the 16 x 16 mesh
+        model = build_model(cfg)
+        meta = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                               device="meta") for k in ("tokens", "labels")}
+        t0 = time.perf_counter()
+        with use_options(dryrun.COUNT_OPTIONS):
+            _, cnt = opcount.count(steps_mod.make_train_step(model, hp),
+                                   steps_mod.abstract_train_state(model, hp),
+                                   meta)
+        count_s = time.perf_counter() - t0
+        roof = dryrun.roofline(cnt, peaks)
+        bound_ms = max(roof["compute_s"], roof["memory_s"]) * 1e3
+        walls16 = train16["steps"] if train16 else []
+        measured = [r["wall_ms"] for r in walls16] or walls
+        fastest = min(measured)
+        print(f"phase 19e: phase 16's cell ({TRAIN_BATCH} x {TRAIN_SEQ}, one "
+              f"device) counted on meta tensors in {count_s:.1f} s: "
+              f"{cnt['flops']:.4e} FLOP, {cnt['bytes']:.4e} bytes, peak "
+              f"{cnt['peak_bytes'] / 2**30:.2f} GiB live; roofline "
+              f"compute {roof['compute_s'] * 1e3:.2f} ms, memory "
+              f"{roof['memory_s'] * 1e3:.2f} ms, bound {bound_ms:.2f} ms "
+              f"({roof['dominant']}) against phase 16's measured steps "
+              f"{', '.join(f'{m:.1f}' for m in measured)} ms (fastest "
+              f"{fastest:.1f}: the step takes {fastest / bound_ms:.2f}x "
+              f"its bound; {card})", flush=True)
+        if bound_ms > fastest:
+            fail("phase 19e: the counted bound exceeds the measured step "
+                 "(a counting error)")
+        stats["phase16_cell"] = {"flops": cnt["flops"], "bytes": cnt["bytes"],
+                                 "peak_bytes": cnt["peak_bytes"],
+                                 "roofline": roof, "bound_ms": bound_ms,
+                                 "measured_ms": measured,
+                                 "ratio": fastest / bound_ms,
+                                 "count_s": count_s}
+        cells = {}
+        for shape, (proc, log) in procs.items():
+            rc = proc.wait(timeout=DRY_TIMEOUT_S)
+            log.close()
+            path = os.path.join(dry_out, f"qwen2-1.5b__{shape}__single.json")
+            rec = json.load(open(path)) if os.path.exists(path) else {}
+            if rc != 0 or rec.get("status") not in ("ok", "skipped"):
+                print(open(os.path.join(tmp, f"dryrun_{shape}.log"))
+                      .read()[-3000:], flush=True)
+                fail(f"phase 19e: the dry-run of {shape} ended rc {rc}, "
+                     f"status {rec.get('status')}: {rec.get('error')}")
+            cells[shape] = rec
+        dry_s = time.perf_counter() - t_dry
+        print(f"  the dry-run, qwen2-1.5b on the 16 x 16 mesh (fake group, "
+              f"meta tensors, 19a's peaks), its cells in parallel on the "
+              f"host, {dry_s:.1f} s from 19a's end:", flush=True)
+        for shape, rec in cells.items():
+            if rec["status"] == "skipped":
+                print(f"    {shape}: skipped ({rec['reason']})", flush=True)
+                continue
+            r = rec["roofline"]
+            print(f"    {shape}: ok in {rec['compile_seconds']} s; per "
+                  f"device {rec['flops_per_device']:.4e} FLOP, "
+                  f"{rec['bytes_per_device']:.4e} bytes, collectives "
+                  f"{rec['collective_bytes_per_device']:.4e} bytes "
+                  f"{rec['collective_breakdown']}; memory "
+                  f"{rec['memory']['total_bytes'] / 2**30:.2f} GiB; compute "
+                  f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                  f"dominant {r['dominant']}, useful_flops_ratio "
+                  f"{r['useful_flops_ratio']:.4f}; peaks measured "
+                  f"{rec['peaks']['measured']}", flush=True)
+            if not rec["peaks"]["measured"]:
+                fail(f"phase 19e: {shape}'s record did not read 19a's peaks")
+        stats["dryrun"] = {s: {k: rec.get(k) for k in (
+            "status", "compile_seconds", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device",
+            "collective_breakdown", "memory", "roofline")}
+            for s, rec in cells.items()}
+        stats["dryrun_s"] = dry_s
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {stats['wall_s']:.1f} s ({card})", flush=True)
     return stats
 
 
@@ -3942,6 +4367,12 @@ def main() -> int:
         "host_and_wall": host_and_wall, "device_busy": device_busy,
         "dev": dev})
 
+    # ---------------------------------------------------------------- 19
+    distribution_stats = distribution_phase({
+        "reset_counts": reset_counts, "counts": counts,
+        "path_counts": path_counts, "compare": compare, "dev": dev,
+        "train_stats": train_stats})
+
     # ---------------------------------------------------------------- 15
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/gemm_tile.cuh",
@@ -4021,6 +4452,7 @@ def main() -> int:
                       "mala": mala_stats, "training": train_stats,
                       "translate": translate_stats,
                       "families": families_stats,
+                      "distribution": distribution_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

@@ -15,10 +15,12 @@
   of GB).
 * **Async**: the staging happens on the caller thread; file writes can
   run on a background thread.
-* **Restore onto a device**: leaves are stored with their global shapes
-  and a tree manifest; ``restore`` puts every leaf on ``device`` as a
-  tensor.  (The reference's ``shardings=`` — restore onto another mesh —
-  waits for the port's distribution slice.)
+* **Elastic restore**: leaves are stored with their global shapes (a
+  DTensor leaf is saved whole, ``full_tensor()``) and a tree manifest;
+  ``restore(shardings=...)`` places every leaf on its
+  ``dist.sharding.NamedSharding``'s mesh with its placements, whatever
+  mesh saved it — the reference's restore onto any mesh.  Without
+  shardings every leaf is a tensor on ``device`` (one device).
 * **keep_k** garbage collection.
 
 numpy has no bfloat16, so a leaf whose host copy numpy cannot hold is
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dualview import TRANSFERS, DualView
+from repro_torch.models.spec import tree_map
 
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
@@ -104,6 +107,8 @@ class CheckpointManager:
         staged, dtypes = {}, {}
         lazy_hits = 0
         for key, arr in leaves:
+            if hasattr(arr, "full_tensor"):    # a DTensor: its global value
+                arr = arr.full_tensor()
             if isinstance(arr, torch.Tensor):
                 dv = DualView.from_device(arr, name=key)
             else:                          # numpy or a Python number
@@ -164,10 +169,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None,
+    def restore(self, step: Optional[int] = None, shardings: Any = None,
                 device: str = "cuda") -> tuple:
-        """Load a checkpoint (the latest by default) → (tree, step), every
-        leaf a tensor on ``device``."""
+        """Load a checkpoint (the latest by default) → (tree, step).  With
+        ``shardings`` (a tree of ``NamedSharding`` matching the saved one)
+        every leaf is a DTensor on its sharding's mesh with its
+        placements (``dist.sharding.distribute``); else a tensor on
+        ``device``."""
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -182,5 +190,11 @@ class CheckpointManager:
                 t = torch.from_numpy(np.load(os.path.join(path, name)))
                 if key in dtypes:
                     t = t.view(getattr(torch, dtypes[key]))
-                leaves[key] = t.to(device)
-        return _unflatten(manifest["tree"], leaves), manifest["step"]
+                leaves[key] = t if shardings is not None else t.to(device)
+        tree = _unflatten(manifest["tree"], leaves)
+        if shardings is not None:
+            from repro_torch.dist import sharding as shd
+            tree = tree_map(
+                lambda t, s: shd.distribute(t.to(s.mesh.device_type), s),
+                tree, shardings)
+        return tree, manifest["step"]

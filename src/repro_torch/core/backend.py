@@ -88,12 +88,13 @@ class ParallelHierarchy:
     scratch_bytes: int = 96 * 2**20
     compute_unit: int = 128
     # Performance ceilings the roofline cost model divides by
-    # (repro_torch.core.costmodel).  ``None`` means "inherit the measured host
-    # peaks" (benchmarks/machine_peaks.py) — the right default for host
-    # backends; a device backend declares its architecture's numbers as
-    # data here.  ``launch_overhead_s=0.0`` is a meaningful declaration:
-    # it says this backend's "launches" are jit-traced into one program
-    # (no real dispatch boundary), so fusion can't save launch overhead.
+    # (repro_torch.core.costmodel).  ``None`` means "inherit the measured
+    # host peaks" (``python -m repro_torch.benchmarks.machine_peaks``) —
+    # the right default for host backends; a device backend declares its
+    # architecture's numbers as data here.  ``launch_overhead_s=0.0`` is a
+    # meaningful declaration: it says this backend's "launches" are
+    # jit-traced into one program (no real dispatch boundary), so fusion
+    # can't save launch overhead.
     bandwidth_bytes_per_s: Optional[float] = None
     flops_per_s: Optional[float] = None
     launch_overhead_s: Optional[float] = None

@@ -3,9 +3,11 @@
 reference's ``repro.core.costmodel``, free of JAX).
 
 * :class:`MachinePeaks` — machine ceilings (streaming bandwidth,
-  scratch-tier bandwidth, dense-matmul flops, per-launch overhead),
-  read from a fingerprinted JSON under the tune-cache directory when a
-  peaks run has written one, else the documented defaults below.
+  scratch-tier bandwidth, dense f32 and bf16 matmul flops, per-launch
+  overhead), read from a fingerprinted JSON under the tune-cache
+  directory when a peaks run (``python -m
+  repro_torch.benchmarks.machine_peaks``, on the card) has written one
+  (:func:`save_peaks`), else the documented defaults below.
 * :class:`CostModel` — ``t(candidate) = max(bytes_moved / bandwidth,
   flops / peak) + launches * launch_overhead`` over the declared
   :class:`~repro_torch.core.backend.ParallelHierarchy`; a hierarchy that
@@ -42,14 +44,15 @@ JIT_LAUNCH_ELISION_S = 1e-7
 # ---------------------------------------------------------------------------
 
 # Data-driven defaults for a desktop-class host, used until
-# `python -m benchmarks.machine_peaks` persists a measurement for this
-# host's fingerprint.  These are deliberately conservative; they are the
-# ONLY hardcoded performance constants outside backend hierarchy
+# `python -m repro_torch.benchmarks.machine_peaks` persists a measurement
+# for this host's fingerprint.  These are deliberately conservative; they
+# are the ONLY hardcoded performance constants outside backend hierarchy
 # declarations (CI lint enforces this).
 DEFAULT_PEAKS = {
     "bandwidth_bytes_per_s": 2.0e10,          # streaming main memory
     "scratch_bandwidth_bytes_per_s": 2.0e11,  # cache/scratch tier
     "flops_per_s": 5.0e10,                    # dense f32 matmul
+    "bf16_flops_per_s": 5.0e10,               # dense bf16 matmul
     "launch_overhead_s": 5.0e-6,              # one real kernel dispatch
     "dispatch_overhead_s": 5.0e-6,            # one host->runtime call
 }
@@ -58,13 +61,16 @@ DEFAULT_PEAKS = {
 @dataclasses.dataclass(frozen=True)
 class MachinePeaks:
     """Measured (or default) machine ceilings the roofline model divides
-    by.  ``measured=False`` marks the documented defaults."""
+    by.  ``measured=False`` marks the documented defaults.
+    ``flops_per_s`` is the f32 matrix rate the cost model ranks by;
+    ``bf16_flops_per_s`` the bf16 one, the dry-run's compute ceiling."""
 
     bandwidth_bytes_per_s: float
     scratch_bandwidth_bytes_per_s: float
     flops_per_s: float
     launch_overhead_s: float
     dispatch_overhead_s: float
+    bf16_flops_per_s: float = DEFAULT_PEAKS["bf16_flops_per_s"]
     fingerprint: str = ""
     measured: bool = False
 
@@ -113,7 +119,8 @@ def default_peaks() -> MachinePeaks:
 def load_peaks(root: Optional[str] = None) -> MachinePeaks:
     """The persisted measurement for this host fingerprint, else the
     documented defaults.  Never measures — measurement is an explicit,
-    potentially multi-second act (``python -m benchmarks.machine_peaks``)."""
+    potentially multi-second act (``python -m
+    repro_torch.benchmarks.machine_peaks``)."""
     path = _peaks_path(root)
     memo = _PEAKS_MEMO.get(path)
     if memo is not None:
@@ -127,6 +134,17 @@ def load_peaks(root: Optional[str] = None) -> MachinePeaks:
             peaks = default_peaks()   # unreadable cache ≠ broken compile
     _PEAKS_MEMO[path] = peaks
     return peaks
+
+
+def save_peaks(peaks: MachinePeaks, root: Optional[str] = None) -> str:
+    """Persist a measurement under this host's fingerprint (what
+    :func:`load_peaks` reads back); → the file's path."""
+    path = _peaks_path(root)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(peaks.to_dict(), f, indent=2, sort_keys=True)
+    _PEAKS_MEMO[path] = peaks
+    return path
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import reshape
+
 NEG_INF = -1e30
 
 
@@ -71,7 +73,7 @@ def _grouped(x: torch.Tensor, Hkv: int, n: int) -> torch.Tensor:
     """(B, Hq, S, D) → (B, Hkv, rep, n, D) in f32, padded to n positions:
     query head h is group h // rep of KV head h // rep."""
     B, Hq, _, D = x.shape
-    return _pad_to(x, n, 2).reshape(B, Hkv, Hq // Hkv, n, D).float()
+    return reshape(_pad_to(x, n, 2), B, Hkv, Hq // Hkv, n, D).float()
 
 
 def _forward(q, k, v, *, causal, window, scale, logit_softcap, qc, kc):

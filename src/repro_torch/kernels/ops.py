@@ -23,6 +23,20 @@ path above ``CHUNKED_ATTN_THRESHOLD`` positions goes to
 ``kernels/chunked.py`` (online softmax over chunk pairs, the flash
 backward), not to one dense softmax block.
 
+Under a mesh (``dist.sharding``) these wrappers may receive DTensors.
+The plain versions run on them through DTensor's own sharding
+propagation.  A kernel runs on whole operands: a DTensor that every rank
+holds whole (``Replicate()``, or ``Shard`` over mesh dims of size 1, as
+on one card) runs the kernel on its ``to_local()`` (differentiable) and
+the result is wrapped back with the operand's placements; an operand
+truly sharded (a ``Shard`` over a mesh dim of size > 1) raises
+``NotImplementedError`` naming the kernel — sharded kernels wait for a
+multi-card slice, and nothing switches quietly to the plain version.
+The scans' plain versions are Python loops over time, which DTensor
+would dispatch step by step; every (batch row, head or channel) runs
+its own recurrence, so under DTensors they run on local shards of the
+batch (:func:`_plain_scan`: heads and channels replicated first).
+
 The sparse ``kk.spmv`` / ``kk.spmm`` take the composite value
 ``sparse.pack`` made (a ``CsrMatrix``) and skip the autograd wrapper, as
 the reference does.  The reference's ``pallas`` entries quietly ran the
@@ -34,6 +48,7 @@ register here with their kernels, slice by slice.
 from __future__ import annotations
 
 import functools
+import sys
 from typing import Optional
 
 import torch
@@ -184,6 +199,77 @@ def _use_kernels(options: CompileOptions) -> bool:
     return options.backend().wants_kernels(options)
 
 
+def _dtensor_type():
+    """DTensor's class, or None while ``torch.distributed.tensor`` was
+    never imported (then no DTensor can exist, and nothing is loaded)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return None if mod is None else mod.DTensor
+
+
+def _whole_on_every_rank(name: str, t) -> None:
+    for i, pl in enumerate(t.placements):
+        if not pl.is_replicate() and t.device_mesh.size(i) > 1:
+            raise NotImplementedError(
+                f"{name}: an operand of shape {tuple(t.shape)} is {pl} over "
+                f"mesh dim {t.device_mesh.mesh_dim_names[i]!r} of size "
+                f"{t.device_mesh.size(i)}; the kernel runs on whole "
+                "operands (sharded kernels wait for a multi-card slice)")
+
+
+def _kernel_call(name: str, kernel, plain, *args):
+    """``_Kernelized.apply(kernel, plain, *args)``.  DTensor operands,
+    each whole on every rank, run on their local tensors; an output
+    shaped like the first DTensor operand takes its placements (a
+    ``Partial`` of a size-1 dim read as ``Replicate``), any other
+    output is replicated."""
+    DT = _dtensor_type()
+    dts = [a for a in args if DT is not None and isinstance(a, DT)]
+    if not dts:
+        return _Kernelized.apply(kernel, plain, *args)
+    from torch.distributed.tensor import Replicate
+    for t in dts:
+        _whole_on_every_rank(name, t)
+    first = dts[0]
+    mesh = first.device_mesh
+    like = tuple(pl if pl.is_shard() else Replicate()
+                 for pl in first.placements)
+    out = _Kernelized.apply(kernel, plain, *(a.to_local() if isinstance(
+        a, DT) else a for a in args))
+
+    def wrap(o):
+        pl = like if o.shape == first.shape else \
+            (Replicate(),) * mesh.ndim
+        return DT.from_local(o, mesh, pl, run_check=False)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _plain_scan(plain, batched, *args):
+    """``plain(*args)`` for a scan whose rows are independent: with any
+    DTensor operand, each operand flagged in ``batched`` (dim 0 is the
+    batch) is redistributed to the first DTensor's batch sharding (its
+    ``Shard(0)`` mesh dims, every other mesh dim replicated), the rest
+    replicated; ``plain`` runs on the local shards and its outputs (each
+    batch-first) come back with that batch sharding."""
+    DT = _dtensor_type()
+    dts = [a for a in args if DT is not None and isinstance(a, DT)]
+    if not dts:
+        return plain(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dts[0].device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    rows = tuple(Shard(0) if pl == Shard(0) else Replicate()
+                 for pl in dts[0].placements)
+
+    def local(a, is_batched):
+        if a is None:
+            return None
+        if not isinstance(a, DT):
+            a = DT.from_local(a, mesh, rep, run_check=False)
+        return a.redistribute(mesh, rows if is_batched else rep).to_local()
+    out = plain(*(local(a, b) for a, b in zip(args, batched)))
+    return tuple(DT.from_local(o, mesh, rows, run_check=False) for o in out)
+
+
 CHUNKED_ATTN_THRESHOLD = 2048     # longest S computed as one dense block
 
 
@@ -200,9 +286,9 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
     kw = {"causal": causal, "window": window, "scale": scale,
           "logit_softcap": logit_softcap}
     if _use_kernels(options):
-        return _Kernelized.apply(functools.partial(_fa.flash_attention, **kw),
-                                 functools.partial(ref.attention, **kw),
-                                 q, k, v)
+        return _kernel_call("flash_attention",
+                            functools.partial(_fa.flash_attention, **kw),
+                            functools.partial(ref.attention, **kw), q, k, v)
     if max(q.shape[2], k.shape[2]) > CHUNKED_ATTN_THRESHOLD:
         return _chunked.flash_chunked_attention(q, k, v, **kw)
     return ref.attention(q, k, v, **kw)
@@ -215,7 +301,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
     options = options or current_options()
     kw = {"window": window, "scale": scale}
     if _use_kernels(options):
-        return _Kernelized.apply(
+        return _kernel_call(
+            "decode_attention",
             functools.partial(_da.decode_attention, **kw),
             functools.partial(ref.decode_attention, **kw),
             q, k_cache, v_cache, lengths)
@@ -226,9 +313,9 @@ def rmsnorm(x, weight, *, eps=1e-6,
             options: Optional[CompileOptions] = None):
     options = options or current_options()
     if _use_kernels(options):
-        return _Kernelized.apply(functools.partial(_rn.rmsnorm, eps=eps),
-                                 functools.partial(ref.rmsnorm, eps=eps),
-                                 x, weight)
+        return _kernel_call("rmsnorm", functools.partial(_rn.rmsnorm, eps=eps),
+                            functools.partial(ref.rmsnorm, eps=eps),
+                            x, weight)
     return ref.rmsnorm(x, weight, eps=eps)
 
 
@@ -238,9 +325,10 @@ def rwkv6(r, k, v, w, u, *, state=None,
     wants kernels, else the plain version."""
     options = options or current_options()
     if _use_kernels(options):
-        return _Kernelized.apply(_rw.rwkv6_scan, ref.rwkv6_scan,
-                                 r, k, v, w, u, state)
-    return ref.rwkv6_scan(r, k, v, w, u, state)
+        return _kernel_call("rwkv6_scan", _rw.rwkv6_scan, ref.rwkv6_scan,
+                            r, k, v, w, u, state)
+    return _plain_scan(ref.rwkv6_scan, (True, True, True, True, False, True),
+                       r, k, v, w, u, state)
 
 
 def rglru(x, r_gate, i_gate, log_a_param, *, state=None,
@@ -249,9 +337,10 @@ def rglru(x, r_gate, i_gate, log_a_param, *, state=None,
     kernels, else the plain version."""
     options = options or current_options()
     if _use_kernels(options):
-        return _Kernelized.apply(_rg.rglru_scan, ref.rglru_scan,
-                                 x, r_gate, i_gate, log_a_param, state)
-    return ref.rglru_scan(x, r_gate, i_gate, log_a_param, state)
+        return _kernel_call("rglru_scan", _rg.rglru_scan, ref.rglru_scan,
+                            x, r_gate, i_gate, log_a_param, state)
+    return _plain_scan(ref.rglru_scan, (True, True, True, False, True),
+                       x, r_gate, i_gate, log_a_param, state)
 
 
 # registry entries for the model-facing ops too (pipeline completeness)

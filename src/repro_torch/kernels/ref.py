@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.sharding import reshape
+
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dt = torch.promote_types(a.dtype, b.dtype)
@@ -122,7 +124,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     rep = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
-    qg = q.reshape(B, Hkv, rep, D).float()
+    qg = reshape(q, B, Hkv, rep, D).float()
     logits = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale
     pos = torch.arange(S, device=q.device)[None, None, None, :]
     lens = lengths.to(q.device)[:, None, None, None]
@@ -202,14 +204,16 @@ def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
          if state is None else state.float())
     xf, rf, itf = x.float(), r_gate.float(), i_gate.float()
     log_a = -RGLRU_C * torch.nn.functional.softplus(log_a_param.float())
+    # every step's coefficients at once (elementwise, so each entry is
+    # the value a step-by-step evaluation gives); the loop carries h
+    la_r = log_a * torch.sigmoid(rf)
+    # sqrt(1 - a²) computed stably: a² = exp(2 log a σ(r))
+    scale = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la_r), min=1e-12))
+    a = torch.exp(la_r)
+    b = scale * (torch.sigmoid(itf) * xf)
     hs = []
     for t in range(T):
-        la_r = log_a[None, :] * torch.sigmoid(rf[:, t])
-        # sqrt(1 - a²) computed stably: a² = exp(2 log a σ(r))
-        scale = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la_r),
-                                       min=1e-12))
-        h = torch.exp(la_r) * h + scale * (torch.sigmoid(itf[:, t])
-                                           * xf[:, t])
+        h = a[:, t] * h + b[:, t]
         hs.append(h)
     y = (torch.stack(hs, dim=1) if hs else
          torch.zeros((B, 0, D), dtype=torch.float32, device=x.device))

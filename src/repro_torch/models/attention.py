@@ -3,8 +3,9 @@ sliding-window option, the full prefill path and the cached decode paths
 (contiguous and block-paged) — the port of the reference's
 ``models/attention.py``.
 
-The reference's ``dist.sharding.constrain`` calls are dropped: the port
-runs on one device.  Attention goes through ``kernels.ops`` (flash
+Activations are constrained at the reference's places
+(``dist.sharding.constrain``: the identity without a mesh, a DTensor
+redistribution under one).  Attention goes through ``kernels.ops`` (flash
 attention for prefill, decode attention for every cached step), the
 paged cache through ``core.ops``' compiled ``paged.*`` ops.  Those are
 functional: an append returns a new pool, which the caller keeps in
@@ -17,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import ops as cops
+from repro_torch.dist.sharding import constrain, constrain_batch, reshape
 from repro_torch.kernels import ops as kops
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import apply_norm, cdt, norm_spec
@@ -52,9 +54,11 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, positions) -> Tuple:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = constrain(q, "batch", None, "qkv")
+    k = constrain(k, "batch", None, "kv_heads")
+    q = reshape(q, B, S, cfg.n_heads, cfg.head_dim)
+    k = reshape(k, B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = reshape(v, B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, cfg.norm)
         k = apply_norm(p["k_norm"], k, cfg.norm)
@@ -83,15 +87,16 @@ def apply_attention(p: dict, x: torch.Tensor, cfg, *,
     if kv is None:
         q, k, v = _project_qkv(p, x, cfg, positions)
     else:
-        q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads,
-                                              cfg.head_dim)
+        q = reshape(x @ p["wq"].to(x.dtype), B, S, cfg.n_heads,
+                    cfg.head_dim)
         k, v = kv
         causal = False
     out = kops.attention(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=causal, window=window,
                          logit_softcap=cfg.attn_logit_softcap)
     out = out.transpose(1, 2).reshape(B, S, cfg.q_dim)
-    return out @ p["wo"].to(x.dtype)
+    out = constrain(out, "batch", None, "qkv")
+    return constrain_batch(out @ p["wo"].to(x.dtype))
 
 
 def apply_attention_prefill(p: dict, x: torch.Tensor, cfg, *,
@@ -107,13 +112,14 @@ def apply_attention_prefill(p: dict, x: torch.Tensor, cfg, *,
     out = kops.attention(qt, kt, vt, causal=True, window=window,
                          logit_softcap=cfg.attn_logit_softcap)
     out = out.transpose(1, 2).reshape(B, S, cfg.q_dim)
+    out = constrain(out, "batch", None, "qkv")
     if quantized:
         kq, ks = _quantize(kt)
         vq, vs = _quantize(vt)
         cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         cache = {"k": kt.contiguous(), "v": vt.contiguous()}
-    return out @ p["wo"].to(x.dtype), cache
+    return constrain_batch(out @ p["wo"].to(x.dtype)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +152,10 @@ def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _cache_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
               length: int) -> dict:
     """Insert one token's k/v at position ``length`` (the same for all
-    rows — synchronous batched decode).  Returns a new cache."""
+    rows — synchronous batched decode).  Returns a new cache: each leaf
+    selected from the token's entry at ``length`` and the old cache
+    elsewhere (a ``where``, which a DTensor cache sharded along its
+    positions takes with no redistribution)."""
     k4, v4 = k[:, :, None, :], v[:, :, None, :]
     if "k_scale" in cache:
         kq, ks = _quantize(k4)
@@ -154,12 +163,10 @@ def _cache_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
         new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         new = {"k": k4, "v": v4}
-    out = {}
-    for key, val in new.items():
-        buf = cache[key].clone()
-        buf[:, :, length:length + 1] = val.to(buf.dtype)
-        out[key] = buf
-    return out
+    at = (torch.arange(cache["k"].shape[2], device=k.device)
+          == length)[:, None]                     # (S, 1)
+    return {key: torch.where(at, val.to(cache[key].dtype), cache[key])
+            for key, val in new.items()}
 
 
 def _cache_views(cache: dict, compute_dtype) -> Tuple[torch.Tensor,
@@ -187,7 +194,8 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cfg, *, cache: dict,
     lengths = torch.full((B,), length + 1, dtype=torch.int32,
                          device=x.device)
     out = kops.decode_attention(q, kc, vc, lengths, window=window)
-    return out.reshape(B, cfg.q_dim) @ p["wo"].to(x.dtype), cache
+    return constrain_batch(out.reshape(B, cfg.q_dim) @ p["wo"].to(x.dtype)), \
+        cache
 
 
 # ---------------------------------------------------------------------------

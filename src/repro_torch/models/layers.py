@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain_params
 from repro_torch.kernels import ops as kops
 from repro_torch.models.spec import Spec
 
@@ -45,7 +46,13 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
 # -- embedding -----------------------------------------------------------------
 
 def apply_embed(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return p["table"][tokens.long()].to(cdt(cfg))
+    """The table's rows at ``tokens`` (``jnp.take`` on axis 0).  Under a
+    mesh the table is first gathered along the vocab (its d_model dim
+    stays sharded): the rows are then a plain lookup, where DTensor's
+    vocab-sharded lookup and an indexing's backward have no strategy
+    that works across torch releases; the identity without a mesh."""
+    table = constrain_params(p["table"], (None, "embed"))
+    return F.embedding(tokens.long(), table).to(cdt(cfg))
 
 
 def apply_unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ops
+from repro_torch.dist.sharding import constrain, constrain_batch
 from repro_torch.models.layers import activation
 from repro_torch.models.spec import Spec
 
@@ -49,7 +50,8 @@ def gated_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     dt = x.dtype
     g = activation(act)(x @ p["w_gate"].to(dt))
     u = x @ p["w_up"].to(dt)
-    return (g * u) @ p["w_down"].to(dt)
+    h = constrain(g * u, "batch", None, "ffn")
+    return constrain_batch(h @ p["w_down"].to(dt))
 
 
 def mlp_spec(d: int, d_ff: int, bias: bool = True) -> dict:
@@ -68,7 +70,8 @@ def plain_mlp(p: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
     h = x @ p["w_in"].to(dt)
     if "b_in" in p:
         h = h + p["b_in"].to(dt)
-    y = activation(act)(h) @ p["w_out"].to(dt)
+    h = constrain(activation(act)(h), "batch", None, "ffn")
+    y = constrain_batch(h @ p["w_out"].to(dt))
     if "b_out" in p:
         y = y + p["b_out"].to(dt)
     return y

@@ -1,7 +1,7 @@
 """Model facade: one object per architecture wiring spec → init →
 forward / loss / prefill / decode — the port of the reference's
-``models/model.py``, used by tests, ``launch/train.py`` and
-``launch/serve.py``."""
+``models/model.py``, used by tests, ``launch/train.py``,
+``launch/serve.py`` and ``launch/dryrun.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.models import serve as serve_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.spec import init_params, param_count
+from repro_torch.models.spec import (abstract_params, axes_tree,
+                                     init_params, param_count)
 
 
 @dataclasses.dataclass
@@ -28,6 +29,14 @@ class Model:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return init_params(self.spec, gen, device, dtype=dtype)
+
+    def abstract(self):
+        """The parameter tree as meta-device tensors (shapes, dtypes)."""
+        return abstract_params(self.spec)
+
+    def axes(self):
+        """The parameter tree's logical axes (``dist/sharding.py``)."""
+        return axes_tree(self.spec)
 
     def n_params(self) -> int:
         return param_count(self.spec)

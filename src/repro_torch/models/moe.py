@@ -12,10 +12,10 @@ reference's semantics, padding included: the expert products run over
 every slot, filled or empty (an empty slot holds zeros and gives zeros,
 since act(0) = 0 for silu and gelu).
 
-The reference's ``dist.sharding.constrain`` calls are dropped (one
-device); ``_expert_axes`` keeps its logical axes for the distribution
-slice.  The three expert products are ``torch.einsum``, as the
-reference leaves them to XLA outside any Pallas kernel.
+Activations are constrained at the reference's four places
+(``dist.sharding.constrain``: the identity without a mesh).  The three
+expert products are ``torch.einsum``, as the reference leaves them to
+XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain, constrain_batch, reshape
 from repro_torch.models.layers import activation
 from repro_torch.models.spec import Spec
 
@@ -89,7 +90,8 @@ def expert_ffn(p: dict, buf: torch.Tensor, cfg) -> torch.Tensor:
     g = activation(cfg.act)(torch.einsum("gecm,emf->gecf", buf,
                                          p["w_gate"].to(dt)))
     u = torch.einsum("gecm,emf->gecf", buf, p["w_up"].to(dt))
-    return torch.einsum("gecf,efm->gecm", g * u, p["w_down"].to(dt))
+    h = constrain(g * u, "batch", "experts", None, "ffn")
+    return torch.einsum("gecf,efm->gecm", h, p["w_down"].to(dt))
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg
@@ -108,7 +110,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
     G = _n_groups(T)
     Tg = T // G
     C = capacity(Tg, cfg)
-    xt = x.reshape(G, Tg, M)
+    xt = reshape(x, G, Tg, M)
+    xt = constrain(xt, "batch", None, None)
 
     logits = (xt @ p["router"].to(dt)).float()                  # (G,Tg,E)
     probs = torch.softmax(logits, dim=-1)
@@ -137,8 +140,10 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
     contrib = torch.where(keep[..., None], xt[:, token_ids], 0)
     buf = torch.zeros((G, E, C, M), dtype=dt, device=dev).index_put(
         (gi, flat_expert, slot), contrib, accumulate=True)
+    buf = constrain(buf, "batch", "experts", None, None)
 
     out_buf = expert_ffn(p, buf, cfg)
+    out_buf = constrain(out_buf, "batch", "experts", None, None)
 
     # gather back, gate-weighted.  A token's k picks (k = 2 for both MoE
     # configs) add into a zero row: 0 + a + b, the same in either order
@@ -151,6 +156,6 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
     if cfg.moe_dense_residual:
         g = activation(cfg.act)(xt @ p["res_gate"].to(dt))
         u = xt @ p["res_up"].to(dt)
-        out = out + (g * u) @ p["res_down"].to(dt)
+        out = out + constrain_batch((g * u) @ p["res_down"].to(dt))
 
     return out.reshape(B, S, M), aux.float()

@@ -6,8 +6,9 @@ Decode state: the conv tail (width − 1 inputs, kept in f32 by the cache)
 and the RG-LRU hidden h — O(1) per step.  Prefill and the decode step
 both run the scan through ``kernels.ops.rglru`` (the hand kernel on the
 card), which returns its final h; the reference's decode step and its
-prefill's state call the plain scan.  The ``dist.sharding.constrain``
-calls are dropped (one device).
+prefill's state call the plain scan.  The recurrence branch is
+constrained where the reference constrains it
+(``dist.sharding.constrain``: the identity without a mesh).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import constrain, constrain_batch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import activation
 from repro_torch.models.spec import Spec
@@ -57,6 +59,7 @@ def apply_recurrent_block(p: dict, x: torch.Tensor, cfg, *,
     dt = x.dtype
     gate = activation("gelu")(x @ p["w_gate_branch"].to(dt))
     rec = x @ p["w_rec_branch"].to(dt)
+    rec = constrain(rec, "batch", None, "ffn")
     conv_tail = state["conv"] if state is not None else None
     rec, new_tail = _causal_conv1d(rec, p["conv_w"], p["conv_b"], conv_tail)
     r_gate = rec @ p["rg_r"].to(dt)
@@ -67,7 +70,7 @@ def apply_recurrent_block(p: dict, x: torch.Tensor, cfg, *,
     else:
         y, final = kops.rglru(rec, r_gate, i_gate, p["log_a"])
         new_h = final if return_state else None
-    out = (gate * y) @ p["w_out"].to(dt)
+    out = constrain_batch((gate * y) @ p["w_out"].to(dt))
     if return_state or state is not None:
         return out, {"conv": new_tail, "h": new_h}
     return out

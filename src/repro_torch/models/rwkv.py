@@ -6,8 +6,9 @@ channel mixing.
 Decode keeps O(1) state per layer: the last hidden for each shift and
 the WKV state (H, K, V).  The dtypes are the reference's: prefill hands
 the scan w and u in the compute dtype, decode's one-step cell keeps
-them in f32.  The reference's ``dist.sharding.constrain`` calls are
-dropped (one device), and its prefill takes the decode state from the
+them in f32.  Activations are constrained at the reference's two places
+(``dist.sharding.constrain``: the identity without a mesh), and its
+prefill takes the decode state from the
 scan's own final state, where the reference runs a second, plain scan.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain, constrain_batch, reshape
 from repro_torch.kernels import ops as kops
 from repro_torch.models.spec import Spec
 
@@ -76,7 +78,7 @@ def _ddlerp(p: dict, x: torch.Tensor, shifted: torch.Tensor) -> dict:
     base = x + xx * p["mu_x"].to(dt)
     rank = p["lora_a"].shape[1] // 5
     lo = torch.tanh(base @ p["lora_a"].to(dt))            # (..., 5*rank)
-    lo = lo.reshape(lo.shape[:-1] + (5, rank))
+    lo = reshape(lo, lo.shape[:-1] + (5, rank))
     mods = torch.einsum("...fr,frd->...fd", lo, p["lora_b"].to(dt))
     out = {}
     for i, key in enumerate(_MIX_KEYS):
@@ -98,7 +100,7 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, H: int
     """Per-head group norm of the WKV output (RWKV6's ln_x): population
     variance, eps 1e-5, as ``jnp.var``."""
     B, T, d = x.shape
-    xh = x.reshape(B, T, H, d // H).float()
+    xh = reshape(x, B, T, H, d // H).float()
     mu = xh.mean(dim=-1, keepdim=True)
     var = xh.var(dim=-1, unbiased=False, keepdim=True)
     xh = (xh - mu) * torch.rsqrt(var + 1e-5)
@@ -117,11 +119,11 @@ def apply_time_mix(p: dict, x: torch.Tensor, cfg, *,
     H = d // hd
     dt = x.dtype
     mixed = _ddlerp(p, x, _shifted(x, shift_state))
-    r = (mixed["r"] @ p["wr"].to(dt)).reshape(B, T, H, hd)
-    k = (mixed["k"] @ p["wk"].to(dt)).reshape(B, T, H, hd)
-    v = (mixed["v"] @ p["wv"].to(dt)).reshape(B, T, H, hd)
+    r = reshape(mixed["r"] @ p["wr"].to(dt), B, T, H, hd)
+    k = reshape(mixed["k"] @ p["wk"].to(dt), B, T, H, hd)
+    v = reshape(mixed["v"] @ p["wv"].to(dt), B, T, H, hd)
     g = F.silu(mixed["g"] @ p["wg"].to(dt))
-    w = _decay(p, mixed["w"]).reshape(B, T, H, hd)
+    w = reshape(_decay(p, mixed["w"]), B, T, H, hd)
     if T == 1 and wkv_state is not None:
         # stateful single step (decode): the closed-form cell update
         y, new_state = _wkv_cell(r[:, 0], k[:, 0], v[:, 0], w[:, 0],
@@ -131,7 +133,8 @@ def apply_time_mix(p: dict, x: torch.Tensor, cfg, *,
         y, final = kops.rwkv6(r, k, v, w.to(dt), p["u"].to(dt))
         new_state = final if return_state else None
     y = _group_norm(y.reshape(B, T, d), p["ln_x"], H) * g
-    out = y @ p["wo"].to(dt)
+    out = constrain_batch(constrain(y, "batch", None, "qkv") @
+                          p["wo"].to(dt))
     if return_state or wkv_state is not None:
         return out, (x[:, -1, :], new_state)
     return out
@@ -155,7 +158,9 @@ def apply_channel_mix(p: dict, x: torch.Tensor, cfg, *,
     xk = x + xx * p["mu_k"].to(dt)
     xr = x + xx * p["mu_r"].to(dt)
     k = torch.square(F.relu(xk @ p["wk"].to(dt)))
-    out = torch.sigmoid(xr @ p["wr"].to(dt)) * (k @ p["wv"].to(dt))
+    k = constrain(k, "batch", None, "ffn")
+    out = torch.sigmoid(xr @ p["wr"].to(dt)) * \
+        constrain_batch(k @ p["wv"].to(dt))
     if return_state or shift_state is not None:
         return out, x[:, -1, :]
     return out

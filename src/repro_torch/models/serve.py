@@ -24,7 +24,8 @@ Cache layouts:
   all but name, with no copy into a stacked array.
 
 Each ``lax.scan`` over stacked layers of the reference is a Python loop
-here.
+here.  The residual stream is constrained at the reference's places
+(``dist.sharding.constrain``: the identity without a mesh).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -173,6 +175,7 @@ def paged_decode_step(params, token: torch.Tensor, cache: Dict[str, list],
     Returns (logits (B, V), the new per-layer pools)."""
     _paged(cfg)
     x = apply_embed(params["embed"], token[:, None], cfg)[:, 0]
+    x = constrain(x, "batch", "embed")
     new: Dict[str, list] = {k: [] for k in cache}
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
@@ -247,11 +250,16 @@ def prefill(params, batch: dict, cfg, *, max_len: int,
 
 
 def _pad_kv(per_layer: list, S: int, max_len: int) -> dict:
-    """Per-layer (B, Hkv, S, hd) prefill KV stacked over layers and padded
-    to ``max_len`` positions."""
-    return {k: torch.nn.functional.pad(
-        torch.stack([kv[k] for kv in per_layer]), (0, 0, 0, max_len - S))
-        for k in per_layer[0]}
+    """Per-layer (B, Hkv, S, hd) prefill KV stacked over layers and
+    followed by zeros up to ``max_len`` positions (a concatenation, which
+    DTensor places as it places the cache)."""
+    out = {}
+    for k in per_layer[0]:
+        x = torch.stack([kv[k] for kv in per_layer])
+        tail = torch.zeros(tuple(x.shape[:3]) + (max_len - S,) +
+                           tuple(x.shape[4:]), dtype=x.dtype, device=x.device)
+        out[k] = torch.cat([x, tail], dim=3)
+    return out
 
 
 def _prefill_dense(params, x, cfg, positions, max_len, quantized):
@@ -265,7 +273,7 @@ def _prefill_dense(params, x, cfg, positions, max_len, quantized):
                                              quantized=quantized)
         x = x + a
         h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = x + _ffn(lp, h, cfg)
+        x = constrain(x + _ffn(lp, h, cfg), "batch", "seq", None)
         per_layer.append(kv)
     return x, {"kv": _pad_kv(per_layer, S, max_len)}
 
@@ -281,7 +289,7 @@ def _prefill_rwkv(params, x, cfg):
         h = apply_norm(lp["ln2"], x, cfg.norm)
         cm, sh2 = rwkv_mod.apply_channel_mix(lp["channel_mix"], h, cfg,
                                              return_state=True)
-        x = x + cm
+        x = constrain(x + cm, "batch", "seq", None)
         states.append({"shift1": sh1, "shift2": sh2, "wkv": wkv})
     return x, stack_trees(states)
 
@@ -311,7 +319,8 @@ def _prefill_hybrid(params, x, cfg, positions, W):
                     sts[name] = {"k": _ring_from_prefill(kv["k"], S, W),
                                  "v": _ring_from_prefill(kv["v"], S, W)}
                 h = apply_norm(lp["ln2"], x, cfg.norm)
-                x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
+                x = constrain(x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act),
+                              "batch", "seq", None)
             groups.append(sts)
         cache[key] = stack_trees(groups)
     return x, cache
@@ -330,6 +339,7 @@ def decode_step(params, token: torch.Tensor, cache: dict, length: int,
     """One decode step.  token: (B,) int32; length: tokens already in
     context.  Returns (logits (B, V), new cache)."""
     x = apply_embed(params["embed"], token[:, None], cfg)[:, 0]
+    x = constrain(x, "batch", "embed")
     if cfg.family == "rwkv":
         x, new = _decode_rwkv(params, x, cache, cfg)
     elif cfg.family == "hybrid":

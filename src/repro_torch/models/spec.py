@@ -3,9 +3,10 @@
 
 Each model layer declares its parameters once as a tree of ``Spec``s
 (shape, logical axes, initializer).  From that tree come materialized
-parameters (:func:`init_params`) and parameter counts.  The logical axis
-names are kept for the distribution slice; one device needs none of
-them.
+parameters (:func:`init_params`), abstract shapes for the dry-run
+(:func:`abstract_params`: meta-device tensors, no allocation), the
+logical-axes tree (:func:`axes_tree`, which ``dist/sharding.py`` maps
+onto a mesh) and parameter counts.
 
 :func:`init_params` takes a ``torch.Generator`` and derives one
 generator per leaf from the leaf's tree path (crc32, stable across
@@ -133,6 +134,18 @@ def init_params(spec_tree, gen: torch.Generator, device="cuda",
         return out
 
     return build((), spec_tree)
+
+
+def abstract_params(spec_tree) -> Any:
+    """Meta-device tensors of the specs' shapes and dtypes — the port's
+    ``ShapeDtypeStruct`` tree, what the dry-run counts on."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
+
+
+def axes_tree(spec_tree) -> Any:
+    """Each leaf's logical axes (a tuple of names or None)."""
+    return tree_map(lambda s: s.axes, spec_tree)
 
 
 def param_count(spec_tree) -> int:

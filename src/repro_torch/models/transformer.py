@@ -12,7 +12,9 @@ take one layer's views (:func:`layer_params`), training unbinds each
 stacked leaf once (:func:`unstack`), so every layer's gradient flows
 back into the stacked leaf through one stack in the backward.  Each
 layer body may run under ``torch.utils.checkpoint`` with the reference's
-remat policies (:func:`_remat_policy`).
+remat policies (:func:`_remat_policy`).  The residual stream, the
+embedded input and the logits are constrained at the reference's places
+(``dist.sharding.constrain``: the identity without a mesh).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import constrain, reshape
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -176,13 +179,15 @@ def _embed_input(params, batch, cfg):
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(x.dtype)  # (B, Np, D)
         x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
-    return x
+    return constrain(x, "batch", "seq", None)
 
 
 def _lm_head(params, x, cfg):
     if cfg.tie_embeddings:
-        return apply_unembed(params["embed"], x)
-    return x @ params["head"].to(x.dtype)
+        logits = apply_unembed(params["embed"], x)
+    else:
+        logits = x @ params["head"].to(x.dtype)
+    return constrain(logits, "batch", None, "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +204,7 @@ def _dense_layer(lp, x, cfg, positions, window=None):
                                  causal=True, window=window)
     h = apply_norm(lp["ln2"], x, cfg.norm)
     x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
-    return x, _no_aux(x)
+    return constrain(x, "batch", "seq", None), _no_aux(x)
 
 
 def _moe_layer(lp, x, cfg, positions):
@@ -208,7 +213,7 @@ def _moe_layer(lp, x, cfg, positions):
                                  causal=True)
     h = apply_norm(lp["ln2"], x, cfg.norm)
     moe_out, aux = moe_mod.apply_moe(lp["moe"], h, cfg)
-    return x + moe_out, aux
+    return constrain(x + moe_out, "batch", "seq", None), aux
 
 
 def _rwkv_layer(lp, x, cfg):
@@ -216,7 +221,7 @@ def _rwkv_layer(lp, x, cfg):
     x = x + rwkv_mod.apply_time_mix(lp["time_mix"], h, cfg)
     h = apply_norm(lp["ln2"], x, cfg.norm)
     x = x + rwkv_mod.apply_channel_mix(lp["channel_mix"], h, cfg)
-    return x, _no_aux(x)
+    return constrain(x, "batch", "seq", None), _no_aux(x)
 
 
 def _hybrid_group(gp, x, cfg, positions, pattern):
@@ -231,7 +236,7 @@ def _hybrid_group(gp, x, cfg, positions, pattern):
                                          window=cfg.window)
         h = apply_norm(lp["ln2"], x, cfg.norm)
         x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
-    return x
+    return constrain(x, "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -387,8 +392,8 @@ def _cross_kv(p, enc, cfg):
     encoder output."""
     B, Se, _ = enc.shape
     dt = enc.dtype
-    k = (enc @ p["wk"].to(dt)).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc @ p["wv"].to(dt)).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    k = reshape(enc @ p["wk"].to(dt), B, Se, cfg.n_kv_heads, cfg.head_dim)
+    v = reshape(enc @ p["wv"].to(dt), B, Se, cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -421,7 +426,11 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     labels = labels.long()
     mask = (labels >= 0).float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    # under a mesh, the vocab-sharded pick is summed over the model axis
+    # before its last dim goes (DTensor's masked partial keeps the
+    # gather's (B, S, 1) mask); the identity without a mesh
+    ll = constrain(torch.gather(lf, -1, labels.clamp(min=0)[..., None]),
+                   "batch", None, None)[..., 0]
     nll = (lse - ll) * mask
     z = torch.square(lse) * mask
     denom = torch.clamp(mask.sum(), min=1.0)

@@ -37,6 +37,19 @@ from repro_torch.core.tracer import TensorSpec  # noqa: E402
 from repro_torch.kernels import spmv as tspmv  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    a core has them fight over the cores (a test here ran ~30x slower
+    beside the other workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 BACKENDS = ("cuda", "torch", "auto", "loops", "openmp")
 _N = [0]

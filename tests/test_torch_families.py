@@ -66,6 +66,19 @@ from repro_torch.models.spec import tree_leaves_with_path  # noqa: E402
 from repro_torch.optim import OptimizerConfig as TOptConfig  # noqa: E402
 from repro_torch.optim import init_opt_state as tinit_opt  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    a core has them fight over the cores (a test here ran ~30x slower
+    beside the other workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 NEW = ("grok-1-314b", "arctic-480b", "starcoder2-15b", "qwen1.5-32b",
        "qwen3-32b", "qwen2-vl-2b", "whisper-base")

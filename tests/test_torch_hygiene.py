@@ -41,7 +41,11 @@ def test_import_pulls_in_neither_jax_nor_reference():
                     "repro_torch.checkpoint.manager",
                     "repro_torch.runtime.fault",
                     "repro_torch.core.translate", "repro_torch.core.native",
-                    "repro_torch.backends.openmp"):
+                    "repro_torch.backends.openmp",
+                    "repro_torch.dist.sharding", "repro_torch.launch.mesh",
+                    "repro_torch.launch.shapes", "repro_torch.launch.dryrun",
+                    "repro_torch.launch.opcount",
+                    "repro_torch.benchmarks.machine_peaks"):
         assert serving in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

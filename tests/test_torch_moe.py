@@ -36,6 +36,19 @@ from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.spec import tree_leaves_with_path  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    a core has them fight over the cores (a test here ran ~30x slower
+    beside the other workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("grok-1-314b", "arctic-480b")
 CASES = {"g32": (2, 64), "g1": (1, 37), "drops": (1, 301),
          "ties": (1, 301)}

@@ -36,6 +36,19 @@ from repro_torch.kernels import rwkv6 as trw_kernel  # noqa: E402
 from repro_torch.models import rglru_block as trg  # noqa: E402
 from repro_torch.models import rwkv as trwkv  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    a core has them fight over the cores (a test here ran ~30x slower
+    beside the other workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)        # f32 plain against plain
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-4)  # the reference's kernel bar
 TARGETS = ("cuda", "torch")             # the port's, on CPU tensors

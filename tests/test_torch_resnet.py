@@ -28,6 +28,19 @@ from repro_torch.models import resnet  # noqa: E402
 
 from test_torch_pipeline import _ids_normalized  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    a core has them fight over the cores (a test here ran ~30x slower
+    beside the other workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _OP_TOL = dict(rtol=1e-5, atol=1e-5)
 _PROBS_TOL = dict(rtol=1e-4, atol=1e-6)
 _TARGETS = ("torch", "cuda", "loops", "auto")

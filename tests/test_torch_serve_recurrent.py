@@ -43,6 +43,19 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.models.spec import tree_leaves_with_path  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    a core has them fight over the cores (a test here ran ~30x slower
+    beside the other workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("rwkv6-3b", "recurrentgemma-9b")
 REF_TARGETS = ("xla", "pallas")
 TARGETS = ("cuda", "torch")

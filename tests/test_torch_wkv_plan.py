@@ -27,6 +27,19 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import rwkv6 as rw  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread while this module runs: the suite runs
+    in several worker processes at once, and torch's default of a thread
+    a core has them fight over the cores (a test here ran ~30x slower
+    beside the other workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMEM_LIMIT = 232_448   # shared memory a block may opt in to (H100)
 SMS = 132
 CHUNK = rw.SUB * rw.MAX_NSUB          # 64 steps at T above 32
