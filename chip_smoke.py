@@ -273,6 +273,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     bytes and collective bytes per device, memory, dominant term and
     useful-FLOPs ratio (fail on an errored cell or a record that did not
     read (a)'s peaks), and the phase's wall time;
+20. (run after 19, before 15's lines) every compiled path verified, and
+    the reference's default mode: (a) the four demos (``cuda``, ``torch``,
+    ``auto``), phase 4's qwen2-1.5b block in f32 and bf16 (``cuda``,
+    ``auto``), ResNet18 and MALA at phase 13's and 14's shapes, phase 12's
+    batched products and lapis-translate's four pinned graphs (``cuda``),
+    each compiled again with ``verify_ir="full"``: no error diagnostic
+    (one raises), each module's warnings printed, the IR equal to the
+    unverified compile's up to SSA ids and the outputs equal bit for bit
+    (both calls under ``torch.use_deterministic_algorithms``: the library
+    SpMV's ``index_add_`` sums by atomics otherwise); the compile seconds
+    with and without;
+    (b) the dynamic shared memory of each launch plan (``kk.gemm`` of
+    every module above on its route, gemv, the batched products' small
+    and tiled plans, both flash kernels at head dims 64, 128 and 256)
+    printed beside ``H100_HIERARCHY.scratch_bytes`` (the budget the
+    scratch checker holds every tiling to): fail if one exceeds it; (c)
+    the qwen2-1.5b block (f32, bf16), the mlp demo and ResNet18 under
+    ``torch``, ``cuda``, ``auto`` and ``auto`` with
+    ``prefer_library=False``: under ``auto`` no hand GEMM (the library
+    intercepts the products), with ``prefer_library=False`` as many as
+    ``cuda``; nests launch on ``cuda`` only, one each mapped nest
+    (``auto`` collapses them into library calls, as the reference's
+    does); no plain call anywhere; each output within phase 4's
+    tolerances of ``torch`` (ResNet18: 1e-3 of an f64 evaluation, the
+    same top-1 classes); the block's device time (and with the host's
+    share) under each route beside the card's name and power limit;
 15. print the ``{"kernels": [...]}`` line (sixteen kernels: flash
     attention's bf16 and f32 kernels are two rows, and so are the bf16
     ``wgmma`` and the FFMA routes of ``kk.gemm`` and of the tiled batched
@@ -386,6 +412,9 @@ MESH_STEPS = 2
 SERVE19_PROMPTS, SERVE19_GEN = (64, 200, 384, 512), 16
 DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 DRY_TIMEOUT_S = 600
+# phase 20: the head dims the served models' flash kernels run (whisper-base
+# 64; qwen2-1.5b, grok-1-314b and the 32B models 128; recurrentgemma-9b 256)
+FLASH_HEAD_DIMS = (64, 128, 256)
 
 
 class KernelCount:
@@ -2227,6 +2256,352 @@ def distribution_phase(ctx) -> dict:
     return stats
 
 
+def ids_normalized(text: str) -> str:
+    """IR text with its SSA ids renumbered by first appearance, so two
+    compiles of one function compare."""
+    ids = {}
+    return re.sub(r"%(\d+)", lambda m: "%" + ids.setdefault(
+        m.group(1), f"v{len(ids)}"), text)
+
+
+def translate_graphs(ops, spec, rng) -> dict:
+    """The four graphs lapis-translate's goldens pin (a product, a fused
+    MLP, SpMV on CSR, a paged swap round trip), their weights seeded:
+    name → (fn, specs, example inputs as numpy arrays)."""
+    import numpy as np
+    wr = np.random.default_rng(7)
+    w = wr.standard_normal((16, 8), dtype=np.float32)
+    mr = np.random.default_rng(11)
+    w1 = mr.standard_normal((16, 32), dtype=np.float32)
+    b1 = mr.standard_normal((4, 32), dtype=np.float32)
+    w2 = mr.standard_normal((32, 8), dtype=np.float32)
+    n, lens = 8, np.array([2, 2, 1, 2, 1, 2, 1, 1])
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    nb, ns, heads, bs, hd = 9, 5, 2, 4, 8
+
+    def matmul(x):
+        return ops.matmul(x, ops.constant(w))
+
+    def fused_mlp(x):
+        h = ops.relu(ops.add(ops.matmul(x, ops.constant(w1)),
+                             ops.constant(b1)))
+        return ops.softmax(ops.matmul(h, ops.constant(w2)))
+
+    def spmv(ip, ind, val, x):
+        return ops.relu(ops.spmv_csr(ip, ind, val, x, n_rows=n,
+                                     nnz_mean=1.5, max_nnz_row=2))
+
+    def paged_swap(pool, swap, pool_ids, swap_ids, fresh_ids):
+        swap2 = ops.page_swap_out(swap, pool, pool_ids, swap_ids,
+                                  block_size=bs)
+        pool2 = ops.page_swap_in(pool, swap2, swap_ids, fresh_ids,
+                                 block_size=bs)
+        return ops.page_copy(pool2, pool2, fresh_ids, pool_ids,
+                             block_size=bs)
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return {
+        "matmul": (matmul, (spec((4, 16), "float32"),), (f32(4, 16),)),
+        "fused_mlp": (fused_mlp, (spec((4, 16), "float32"),),
+                      (f32(4, 16),)),
+        "spmv": (spmv, (spec((n + 1,), "int32"), spec((12,), "int32"),
+                        spec((12,), "float32"), spec((n,), "float32")),
+                 (indptr, rng.integers(0, n, 12).astype(np.int32),
+                  f32(12), f32(n))),
+        "paged_swap": (paged_swap,
+                       (spec((nb, heads, bs, hd), "float32"),
+                        spec((ns, heads, bs, hd), "float32"),
+                        spec((2,), "int32"), spec((2,), "int32"),
+                        spec((2,), "int32")),
+                       (f32(nb, heads, bs, hd), f32(ns, heads, bs, hd),
+                        np.array([1, 4], np.int32), np.array([0, 3], np.int32),
+                        np.array([6, 7], np.int32)))}
+
+
+def verification_phase(ctx) -> dict:
+    """Phase 20: every compiled path again under ``verify_ir="full"``
+    (20a), each launch plan's shared memory against the budget the
+    scratch checker holds the tilings to (20b), and the reference's
+    default mode, products intercepted by the library, on the card
+    (20c).  ``ctx``: main()'s reset_counts, counts, path_counts, time_ms,
+    dev, the qwen2-1.5b block (``block``, ``block16``: fn, spec, input),
+    rn_fn, rn_spec, rn_w, mala_fn, mala_spec and bmm."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import analysis, ops, pipeline
+    from repro_torch.core.backend import H100_HIERARCHY
+    from repro_torch.core.ir import KOKKOS_PARALLEL_OPS
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.tracer import TensorSpec, torch_dtype
+    from repro_torch.kernels import batched_gemm as bgm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.models import resnet
+    reset_counts, counts = ctx["reset_counts"], ctx["counts"]
+    path_counts, time_ms, dev = ctx["path_counts"], ctx["time_ms"], ctx["dev"]
+    budget = H100_HIERARCHY.scratch_bytes
+    card = card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20)
+
+    def on_card(x):
+        return x if isinstance(x, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def outputs(y) -> list:
+        return list(y) if isinstance(y, (tuple, list)) else [y]
+
+    def run_deterministic(mod, args) -> list:
+        """One call under torch's deterministic algorithms: the library's
+        CSR SpMV sums by ``index_add_``, whose atomics give other bits
+        from one call to the next otherwise; cuDNN keeps one algorithm."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                y = outputs(mod(*args))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        return y
+
+    # ---- 20a: verify_ir="full" on every compiled path
+    print("phase 20a: every compiled path compiled again with "
+          "verify_ir='full' (dialect verifier + race / sync / scratch / "
+          "paged-alias checkers after every pass) and run beside the "
+          "unverified module", flush=True)
+    cases = []       # (label, fn, specs, target, inputs)
+    for demo in sorted(pipeline._DEMOS):
+        fn, specs, example = pipeline._DEMOS[demo]()
+        for target in ("cuda", "torch", "auto"):
+            cases.append((f"demo {demo} {target}", fn, specs, target,
+                          example))
+    for key in ("block", "block16"):
+        fn, spec, xv = ctx[key]
+        for target in ("cuda", "auto"):
+            cases.append((f"qwen2 block {spec.dtype} {target}", fn, (spec,),
+                          target, (xv,)))
+    xr = on_card(rng.standard_normal(ctx["rn_spec"].shape).astype(
+        np.float32))
+    cases.append(("resnet18 cuda", ctx["rn_fn"], (ctx["rn_spec"],), "cuda",
+                  (xr,)))
+    xm = on_card(rng.standard_normal(ctx["mala_spec"].shape).astype(
+        np.float32))
+    cases.append(("mala cuda", ctx["mala_fn"], (ctx["mala_spec"],), "cuda",
+                  (xm,)))
+    for sa, sb in BATCHED_CASES:
+        for dt in ("float32", "bfloat16"):
+            a = on_card(rng.standard_normal(sa).astype(np.float32)).to(
+                getattr(torch, dt))
+            b = on_card((rng.standard_normal(sb) * sb[-2] ** -0.5).astype(
+                np.float32)).to(getattr(torch, dt))
+            cases.append((f"batched {'x'.join(map(str, sa))} @ "
+                          f"{'x'.join(map(str, sb))} {dt}", ctx["bmm"],
+                          (TensorSpec(sa, dt), TensorSpec(sb, dt)), "cuda",
+                          (a, b)))
+    for name, (fn, specs, example) in translate_graphs(
+            ops, TensorSpec, rng).items():
+        cases.append((f"translate {name} cuda", fn, specs, "cuda", example))
+    compiled = {}
+    verify = {"modules": len(cases), "errors": 0, "warnings": {},
+              "compile_s": 0.0, "verified_compile_s": 0.0}
+    for label, fn, specs, target, inputs in cases:
+        t0 = time.perf_counter()
+        plain = pipeline.compile(fn, *specs,
+                                 options=CompileOptions(target=target))
+        t1 = time.perf_counter()
+        ver = pipeline.compile(fn, *specs, options=CompileOptions(
+            target=target, verify_ir="full"))
+        t2 = time.perf_counter()
+        verify["compile_s"] += t1 - t0
+        verify["verified_compile_s"] += t2 - t1
+        diags = tuple(getattr(ver.graph, "diagnostics", ()))
+        errors = [d for d in diags if d.severity == analysis.ERROR]
+        n_warn = len(diags) - len(errors)
+        same_ir = ids_normalized(str(plain.graph)) == \
+            ids_normalized(str(ver.graph))
+        args = [on_card(x) for x in inputs]
+        ys, yv = run_deterministic(plain, args), run_deterministic(ver, args)
+        equal = len(ys) == len(yv) and all(
+            torch.equal(p, q) for p, q in zip(ys, yv))
+        print(f"  {label}: {len(errors)} errors, {n_warn} warnings; compile "
+              f"{(t1 - t0) * 1e3:.1f} ms, verified {(t2 - t1) * 1e3:.1f} "
+              f"ms; IR equal: {same_ir}; outputs bit for bit: {equal}",
+              flush=True)
+        if errors or not same_ir or not equal:
+            fail(f"{label}: verification reported {len(errors)} errors, or "
+                 "changed the graph or its outputs")
+        verify["warnings"][label] = n_warn
+        compiled[label] = plain
+    print(f"  {len(cases)} modules, 0 errors, "
+          f"{sum(verify['warnings'].values())} warnings; compile "
+          f"{verify['compile_s']:.2f} s, verified "
+          f"{verify['verified_compile_s']:.2f} s", flush=True)
+
+    # ---- 20b: shared memory of each launch plan against the budget
+    print(f"phase 20b: each launch plan's dynamic shared memory against "
+          f"H100_HIERARCHY.scratch_bytes = {budget} B", flush=True)
+    plans = []
+    for label, mod in compiled.items():
+        for op in mod.graph.ops:
+            if op.opname == "kk.gemm" and label.endswith("cuda"):
+                (m, k), (_, n) = (o.type.shape for o in op.operands)
+                dt = torch_dtype(op.operands[0].type.dtype)
+                plans.append((f"kk.gemm {m}x{k}x{n} "
+                              f"{op.operands[0].type.dtype} ({label})",
+                              mm.gemm_plan(m, n, k, 1, dt, True)))
+            elif op.opname == "kk.batched_gemm":
+                (a_t, b_t) = (o.type for o in op.operands)
+                *batch, m, k = a_t.shape
+                n = b_t.shape[-1]
+                dt = torch_dtype(a_t.dtype)
+                small, _, _, bk, bb = bgm.check_tiling(op.attrs["tiling"],
+                                                       m, n)
+                if small:
+                    plan = bgm.small_plan(m, n, k, math.prod(batch), bb,
+                                          dt.itemsize, bk)
+                    plan["route"] = "small"
+                else:
+                    plan = bgm.plan_for(torch.empty(a_t.shape, dtype=dt,
+                                                    device=dev),
+                                        torch.empty(b_t.shape, dtype=dt,
+                                                    device=dev))
+                plans.append((f"kk.batched_gemm {label[len('batched '):]}",
+                              plan))
+    plans.append(("gemv 1000x777 float32",
+                  mm.gemm_plan(1000, 1, 777, 1, torch.float32, True)))
+    for d_ in FLASH_HEAD_DIMS:
+        plans.append((f"flash_attention bf16 D={d_} (wgmma)",
+                      dict(fa.sm90_plan(d_), route="wgmma")))
+        plans.append((f"flash_attention f32 D={d_} (FFMA)",
+                      dict(fa.ffma_plan(d_), route="ffma")))
+    seen = {}
+    for label, plan in plans:
+        key = (label.split(" (")[0], plan["route"], plan["smem_bytes"])
+        if key in seen:
+            continue
+        seen[key] = plan["smem_bytes"]
+        print(f"  {label}: route {plan['route']}, {plan['smem_bytes']} B "
+              f"shared ({plan['smem_bytes'] / budget:.1%} of the budget)",
+              flush=True)
+    worst = max(p["smem_bytes"] for _, p in plans)
+    if worst > budget:
+        fail(f"a launch plan takes {worst} B of shared memory, over "
+             f"H100_HIERARCHY.scratch_bytes = {budget} B")
+    print(f"  largest: {worst} B of {budget} B ({len(seen)} distinct plans)",
+          flush=True)
+
+    # ---- 20c: the library-interception mode (target="auto") on the card
+    print("phase 20c: target='auto' (products intercepted by the library "
+          "while prefer_library) against 'cuda' and 'torch'", flush=True)
+
+    def to64(t):
+        return ({k: to64(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.double())
+    rn_w64 = to64(ctx["rn_w"])
+    probs64 = pipeline.compile(
+        lambda xv: resnet.resnet18_forward(rn_w64, xv),
+        TensorSpec(ctx["rn_spec"].shape, "float64"),
+        options=CompileOptions(target="torch"))(xr.double())
+    del rn_w64
+
+    def rel_err(p, want) -> float:
+        keep = want.double() > 1e-6
+        return float(((p.double() - want.double()).abs()
+                      / want.double())[keep].max())
+    demo_fn, demo_specs, demo_x = pipeline._demo_mlp()
+    workloads = {   # name → (fn, specs, inputs)
+        "qwen2 block float32": (ctx["block"][0], (ctx["block"][1],),
+                                (ctx["block"][2],)),
+        "qwen2 block bfloat16": (ctx["block16"][0], (ctx["block16"][1],),
+                                 (ctx["block16"][2],)),
+        "mlp demo": (demo_fn, demo_specs, tuple(map(on_card, demo_x))),
+        "resnet18": (ctx["rn_fn"], (ctx["rn_spec"],), (xr,))}
+    modes = (("torch", {}), ("cuda", {}), ("auto", {}),
+             ("auto", {"prefer_library": False}))
+    interception = {}
+    for name, (fn, specs, args) in workloads.items():
+        runs = {}
+        for target, kw in modes:
+            mode = target + ("" if kw.get("prefer_library", True)
+                             else " prefer_library=False")
+            mod = pipeline.compile(fn, *specs, options=CompileOptions(
+                target=target, **kw))
+            reset_counts()
+            y = mod(*args)
+            torch.cuda.synchronize()
+            c = path_counts[f"20c {name} {mode}"] = counts()
+            mapped = sum(1 for op in mod.graph.ops
+                         if op.opname in KOKKOS_PARALLEL_OPS
+                         and not op.attrs.get("collapse"))
+            runs[mode] = {"mod": mod, "y": y, "counts": c,
+                          "gemm": c["matmul"][0] + c["matmul_bf16"][0],
+                          "nests": c["block_map_region"][0]
+                          + c["row_softmax"][0], "mapped_nests": mapped,
+                          "plain": sum(p for _, p in c.values())}
+        lib = runs["torch"]["y"]
+        for mode, r in runs.items():
+            y = r["y"]
+            if name == "resnet18":
+                err = rel_err(y, probs64)
+                ok = err <= 1e-3 and torch.equal(y.argmax(-1),
+                                                 lib.argmax(-1))
+                what = "max rel err against f64 (limit 1e-3), top-1 equal"
+            else:
+                tol = (2e-2 if y.dtype == torch.bfloat16 else
+                       1e-4 if name.startswith("qwen2") else 1e-5)
+                err = float((y.float() - lib.float()).abs().max())
+                limit = tol * (float(lib.float().abs().max())
+                               if name.startswith("qwen2") else 1.0)
+                ok = err <= limit
+                what = f"max abs err against torch (limit {limit:.3e})"
+            ok = ok and bool(torch.isfinite(y).all()) and \
+                y.shape == lib.shape
+            print(f"  {name}, {mode}: launch_count {r['mod'].launch_count}, "
+                  f"hand GEMM launches {r['gemm']}, nest launches "
+                  f"{r['nests']} ({r['mapped_nests']} mapped nests), plain "
+                  f"calls {r['plain']}; {what} {err:.3e}", flush=True)
+            if not ok:
+                fail(f"{name} on {mode} disagrees with the torch target")
+            if r["plain"] or r["nests"] != r["mapped_nests"] or \
+                    (mode != "cuda" and r["nests"]):
+                fail(f"{name} on {mode}: {r['nests']} nest launches for "
+                     f"{r['mapped_nests']} mapped nests, {r['plain']} plain "
+                     "calls")
+        if runs["auto"]["gemm"] or runs["torch"]["gemm"]:
+            fail(f"{name}: target auto launched {runs['auto']['gemm']} hand "
+                 "GEMMs with prefer_library=True")
+        if runs["auto prefer_library=False"]["gemm"] != runs["cuda"]["gemm"]:
+            fail(f"{name}: auto with prefer_library=False launched "
+                 f"{runs['auto prefer_library=False']['gemm']} hand GEMMs, "
+                 f"cuda {runs['cuda']['gemm']}")
+        interception[name] = {m: {"launch_count": r["mod"].launch_count,
+                                  "gemm_launches": r["gemm"],
+                                  "nest_launches": r["nests"]}
+                              for m, r in runs.items()}
+        if name.startswith("qwen2"):
+            times = {}
+            for mode, r in runs.items():
+                times[mode] = {
+                    "device_ms": time_ms(lambda: r["mod"](*args)),
+                    "ms": time_ms(lambda: r["mod"](*args), with_host=True)}
+            print(f"  {name} T={T_TOKENS}, device ms (with the host's "
+                  "share): " + "; ".join(
+                      f"{m} {t['device_ms']:.4f} ({t['ms']:.4f})"
+                      for m, t in times.items()) + f" [{card}]", flush=True)
+            interception[name]["times"] = times
+        del runs
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 20: {wall:.1f} s ({card})", flush=True)
+    return {"verify": verify, "largest_smem_bytes": worst,
+            "smem_budget_bytes": budget, "plans": {
+                k[0]: v for k, v in seen.items()},
+            "interception": interception, "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2535,6 +2910,12 @@ def main() -> int:
                       "quickstart_torch")
     qs_mod = pipeline.compile(qs.model, TensorSpec((8, 64), "float32"),
                               options=CompileOptions(target="cuda"))
+    # phase 20's lapis-translate graphs: their nests' region libraries are
+    # built with the others
+    t20_mods = [pipeline.compile(fn, *specs,
+                                 options=CompileOptions(target="cuda"))
+                for fn, specs, _ in translate_graphs(
+                    ops, TensorSpec, np.random.default_rng(20)).values()]
 
     ragged = (127, 65, 129)
     gemv_mk = (1000, 777)
@@ -2548,7 +2929,7 @@ def main() -> int:
                   pk.page_gather_kernel()]
                + kops.serving_kernel_sources()
                + [ks for m in (*bmm_mods.values(), rn_mod, mala_mod,
-                               qs_mod)
+                               qs_mod, *t20_mods)
                   for ks in kops.kernel_sources(m.graph)])
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
@@ -4373,6 +4754,14 @@ def main() -> int:
         "path_counts": path_counts, "compare": compare, "dev": dev,
         "train_stats": train_stats})
 
+    # ---------------------------------------------------------------- 20
+    verification_stats = verification_phase({
+        "reset_counts": reset_counts, "counts": counts,
+        "path_counts": path_counts, "time_ms": time_ms, "dev": dev,
+        "block": (block, spec, x), "block16": (block16, spec16, x16),
+        "rn_fn": rn_fn, "rn_spec": rn_spec, "rn_w": rn_w,
+        "mala_fn": mala_fn, "mala_spec": mala_spec, "bmm": bmm})
+
     # ---------------------------------------------------------------- 15
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/gemm_tile.cuh",
@@ -4453,6 +4842,7 @@ def main() -> int:
                       "translate": translate_stats,
                       "families": families_stats,
                       "distribution": distribution_stats,
+                      "verification": verification_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

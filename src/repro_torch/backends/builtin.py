@@ -1,5 +1,5 @@
 """Built-in backends: ``torch`` (vendor library), ``cuda`` (hand-written
-CUDA kernels) and ``auto`` (kernels iff the compile targets the card).
+CUDA kernels) and ``auto`` (the paper's default per-op heuristic).
 
 They register through the same plugin API any new architecture uses.
 
@@ -7,13 +7,16 @@ An eager kernel-backed op (``ops.matmul``, ``ops.gemv`` and the batched
 ``ops.matmul`` called outside tracing) is dispatched for the device its
 tensors lie on, as the reference runs on any host: CPU tensors select on
 the CPU (``auto`` then takes the library, ``cuda`` its kernels' plain
-versions), CUDA tensors on the card, where ``auto`` and ``cuda`` launch
-the kernel or raise.  Tensors on more than one device raise.  A CUDA
-tensor never falls back to the library where a kernel is registered.
+versions), CUDA tensors on the card, where ``cuda`` launches the kernel
+or raises, and ``auto`` does so for every op outside
+``LIBRARY_PREFERRED`` (all of them with ``prefer_library=False``).
+Tensors on more than one device raise.  ``cuda`` never falls back to the
+library where a kernel is registered.
 """
 from __future__ import annotations
 
-from repro_torch.core.backend import (Backend, H100_HIERARCHY, get_backend,
+from repro_torch.core.backend import (Backend, H100_HIERARCHY,
+                                      LIBRARY_PREFERRED, get_backend,
                                       register_backend)
 
 
@@ -28,8 +31,14 @@ def _on_card(options) -> bool:
 
 
 def _auto_select(backend: Backend, opname: str, options) -> str:
-    """Hand kernels iff the module runs on the card and one is
-    registered for ``opname``; the library otherwise."""
+    """The reference's auto heuristic on the port's devices: the library
+    for the known hand-optimized ops while ``prefer_library``; for the
+    rest a hand kernel iff the module runs on the card and one is
+    registered for ``opname`` (off the card the plain versions are a
+    validation tool, not a performance path: auto stays on the
+    library)."""
+    if options.prefer_library and opname in LIBRARY_PREFERRED:
+        return "torch"
     if not _on_card(options):
         return "torch"
     cuda = get_backend("cuda")
@@ -62,8 +71,8 @@ register_backend(Backend(
 
 register_backend(Backend(
     name="auto",
-    description="per-op choice: hand kernels for kk.* ops when the module "
-                "runs on the card, the library otherwise",
+    description="per-op heuristic: library for hand-optimized ops, "
+                "kernels elsewhere when the module runs on the card",
     capabilities=frozenset({"library", "sparse"}),
     hierarchy=H100_HIERARCHY,
     fallbacks=("torch",),

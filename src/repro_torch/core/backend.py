@@ -217,6 +217,10 @@ H100_HIERARCHY = ParallelHierarchy(
     flops_per_s=6.7e13,
     launch_overhead_s=4.0e-6)
 
+# Ops for which the library path is known hand-optimized (paper: "operations
+# that we know are hand-optimized" get intercepted with library calls).
+LIBRARY_PREFERRED = {"kk.gemm", "kk.gemv", "kk.batched_gemm", "kk.conv2d"}
+
 # Backend every selection chain ends on: the library path can execute any op.
 DEFAULT_FALLBACK = "torch"
 

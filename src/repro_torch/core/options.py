@@ -12,8 +12,11 @@ package):
                    ops; this is ``linalg-to-kokkoskernels``.
 * ``"cuda"``     — lower hot ops to the hand-written CUDA kernels (the
                    pure-Kokkos lowering path of the paper).
-* ``"auto"``     — kernels for the ``kk.*`` ops iff the options resolve to
-                   the card, the library otherwise.
+* ``"auto"``     — per-op choice (the paper's default pipeline
+                   behaviour): the library for the ops known to be
+                   hand-optimized (``LIBRARY_PREFERRED``, while
+                   ``prefer_library``), the kernels for the rest iff the
+                   options resolve to the card, the library otherwise.
 * ``"loops"``    — eager-torch loop-nest reference interpreter (the paper's
                    generated-Kokkos-loops path), registered entirely through
                    the plugin API.
@@ -38,6 +41,7 @@ DEVICES = ("cuda", "cpu")
 class CompileOptions:
     target: str = "auto"                 # registered backend name
     device: str = "cuda"                 # "cuda" | "cpu" (see resolve_device)
+    prefer_library: bool = True          # linalg-to-kokkoskernels on/off
     fuse_elementwise: bool = True        # beyond-paper fusion pass
     lazy_dualview: bool = True           # paper's lazy sync (False = eager
                                          # copies, the baseline-MLIR mode)

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from repro_torch.core import backend as _backend
+from repro_torch.core.backend import LIBRARY_PREFERRED  # noqa: F401  (re-export)
 from repro_torch.core.options import CompileOptions, current_options
 
 
