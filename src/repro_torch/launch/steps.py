@@ -19,6 +19,12 @@ train / serve loops execute.
 * per-layer remat with the reference's policies
   (``models/transformer.py``).
 
+Under a ``torch.profiler`` session the step records the spans
+``train.step`` around the whole call and, inside it, ``train.forward``
+(the compute cast and the loss), ``train.backward`` (the gradients) and
+``train.optimizer`` (``opt_update``); the first two repeat for each
+microbatch (``runtime/spans.py``).
+
 Under a ``DeviceMesh`` the state and batch are DTensors placed by
 :func:`train_state_shardings` / :func:`batch_shardings`
 (``dist.sharding.distribute_tree``), and the step runs on them
@@ -34,6 +40,7 @@ import torch
 from repro_torch.dist import sharding as shd
 from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.optim import OptimizerConfig, init_opt_state, opt_update
+from repro_torch.runtime import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,19 +100,26 @@ def make_train_step(model, hp: TrainHParams):
     axes = model.axes()
 
     def loss_and_grads(master, batch):
-        compute = tree_map(lambda p: p.detach().requires_grad_(),
-                           cast_compute(master, hp.compute_dtype))
-        leaves = tree_leaves(compute)
-        loss = model.loss(compute, batch, remat_policy=hp.remat_policy,
-                          aux_weight=hp.aux_weight,
-                          scan_unroll=hp.scan_unroll)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the loss does not reach gets zeros, as under jax.grad
-        it = iter(torch.zeros_like(p) if g is None else g
-                  for p, g in zip(leaves, grads))
-        return loss.detach(), tree_map(lambda _: next(it), compute)
+        with spans.span("train.forward"):
+            compute = tree_map(lambda p: p.detach().requires_grad_(),
+                               cast_compute(master, hp.compute_dtype))
+            leaves = tree_leaves(compute)
+            loss = model.loss(compute, batch, remat_policy=hp.remat_policy,
+                              aux_weight=hp.aux_weight,
+                              scan_unroll=hp.scan_unroll)
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a leaf the loss does not reach gets zeros, as under jax.grad
+            it = iter(torch.zeros_like(p) if g is None else g
+                      for p, g in zip(leaves, grads))
+            grads = tree_map(lambda _: next(it), compute)
+        return loss.detach(), grads
 
     def train_step(state, batch):
+        with spans.span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         master = state["params"]
         if hp.microbatches <= 1:
             loss, grads = loss_and_grads(master, batch)
@@ -128,8 +142,9 @@ def make_train_step(model, hp: TrainHParams):
                 loss = loss + l
             grads = tree_map(lambda g: g / k, grads)
             loss = loss / k
-        new_params, new_opt, metrics = opt_update(
-            master, grads, state["opt"], hp.optimizer)
+        with spans.span("train.optimizer"):
+            new_params, new_opt, metrics = opt_update(
+                master, grads, state["opt"], hp.optimizer)
         return ({"params": new_params, "opt": new_opt},
                 {"loss": loss.to(torch.float32), **metrics})
 

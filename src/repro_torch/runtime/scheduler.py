@@ -68,7 +68,8 @@ class BlockAllocator:
         self.n_blocks = n_blocks
         self._free: List[int] = list(range(n_blocks - 1, 0, -1))
         self._rc: Dict[int, int] = {}
-        # telemetry (exported into BENCH_serve.json)
+        # telemetry (`telemetry()`; `launch.serve.serve_paged` returns it
+        # in its result under "telemetry" -> "allocator")
         self.peak_in_use = 0
         self.total_allocs = 0
 
@@ -301,7 +302,8 @@ class ContinuousScheduler:
         self.prefix = prefix_index
         self.pending: Deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * n_slots
-        # telemetry (exported into BENCH_serve.json)
+        # telemetry (`telemetry()`; `launch.serve.serve_paged` returns it
+        # in its result under "telemetry")
         self.preemptions = 0
         self.forks = 0
         self.shared_block_hits = 0
