@@ -159,13 +159,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     ``launch/steps.py``: first the bf16 and f32 flash kernels and
     RMSNorm against their plain versions at the shapes this phase's
     forward gives them (8 and 4 x 12/2 heads x 512 x 128 causal, strided
-    views; 8 and 4 x 512 x 1536 rows), phase 7's tolerances; (a)
+    views; 8 and 4 x 512 x 1536 rows), phase 7's tolerances; then the
+    fused AdamW update (``kernels/adamw.py``) over qwen2-1.5b's leaves at
+    full size (1.544 B entries: bf16 gradients, f32 master and moments)
+    against the plain branch leaf by leaf, without clipping bit for bit
+    and with clipping within 1e-6 of each leaf's largest entry (the
+    gradient norm within 1e-6 relative, lr equal), 2 x leaves + 1
+    launches and no plain call; its device ms printed beside its bytes
+    bound (28 B an entry at this phase's measured HBM stream rate,
+    ``machine_peaks.measure_bandwidth``) and the plain branch's ms; (a)
     qwen2-1.5b at its published widths (28
     layers, tied 151936 vocab, seeded weights), bf16 compute over an f32
     master with AdamW, ``train_loop`` for 6 steps of 8 x 512 tokens on
     the ``cuda`` target: every loss finite and the last below the first,
     exactly 28 bf16 flash and 57 RMSNorm launches a step (2 a layer and
-    the final norm) and no plain call; each step's wall ms, tokens/s and
+    the final norm), 2 x leaves + 1 fused AdamW launches a step, and no
+    plain call; each step's wall ms, tokens/s and
     model FLOPs (6 N T plus attention) over the bf16 peak, then the same
     6 steps under the profiler for each step's device busy ms and peak
     memory; (b) one step with ``remat_policy="nothing"`` against one
@@ -253,11 +262,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     qwen2-1.5b's four cells on the 16 x 16 fake-group mesh, one process a
     cell, running on the host's CPU beside (b)-(d); (b) phase 16's first
     ``MESH_STEPS`` steps (its seed, batches and hyperparameters) unmeshed
-    and as DTensors on a 1 x 1 (data, model) mesh over a world-size-1
-    NCCL group (state by ``train_state_shardings``, batch by
-    ``batch_shardings``): losses and gradient norms within 1e-6 relative
-    of the unmeshed ones and of phase 16's (bitwise equality printed),
-    the bf16 flash and RMSNorm kernels launched and no plain call; (c)
+    on the fused AdamW kernels and on the plain branch, and as DTensors
+    (which take the plain branch) on a 1 x 1 (data, model) mesh over a
+    world-size-1 NCCL group (state by ``train_state_shardings``, batch by
+    ``batch_shardings``): meshed losses and gradient norms within 1e-6
+    relative of the unmeshed plain branch's (bitwise equality printed),
+    the unmeshed fused losses within 1e-6 of phase 16's, fused and plain
+    within phase 16b's bf16 bars (loss 1e-3, gradient norm 1e-2), the
+    bf16 flash and RMSNorm kernels launched and no plain call; (c)
     that state saved and ``restore(shardings=...)``-d onto the mesh,
     every leaf bit for bit with its placements; (d) ``make_prefill_step``
     + ``make_decode_step`` on the mesh in f32 over prompts of
@@ -328,6 +340,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -509,6 +522,105 @@ def small_matrices(np, rng) -> dict:
             "trailing-empty 300x64": trailing}
 
 
+def fused_adamw_phase(torch, dev, cfg, card: str) -> dict:
+    """Phase 16's fused AdamW check (the module docstring): the update
+    over ``cfg``'s leaves at full size against the plain branch."""
+    from repro_torch.benchmarks import machine_peaks
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.models.model import build_model
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim import OptimizerConfig
+
+    shapes = [tuple(t.shape) for t in tree_leaves(build_model(cfg).abstract())]
+    n = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+
+    def rand(shape, scale, dtype=torch.float32, positive=False):
+        t = torch.randn(shape, generator=gen, device=dev).mul_(scale)
+        return (t.abs_() if positive else t).to(dtype)
+    # a state some steps in: bf16 gradients as the backward hands them,
+    # f32 master and moments, step 5 of a 100-step cosine
+    ps = [rand(s, 0.02) for s in shapes]
+    gs = [rand(s, 1e-3, torch.bfloat16) for s in shapes]
+    ms = [rand(s, 1e-4) for s in shapes]
+    vs = [rand(s, 1e-7, positive=True) for s in shapes]
+    step = torch.full((), 5, dtype=torch.int32, device=dev)
+    hbm = machine_peaks.measure_bandwidth(1 << 28, 10, 5)
+    bound_ms = 28 * n / hbm * 1e3
+    print(f"phase 16: fused AdamW over qwen2-1.5b's {len(shapes)} leaves "
+          f"({n / 1e9:.3f} B entries; HBM stream {hbm / 1e12:.3f} TB/s "
+          "measured here)", flush=True)
+
+    def event_ms(fn, reps=5) -> float:
+        out = fn()
+        del out
+        samples = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+            del out
+        return statistics.median(samples)
+
+    stats = {"leaves": len(shapes), "entries": n, "hbm_bytes_per_s": hbm,
+             "bound_ms": bound_ms}
+    for clip in (0.0, 1.0):
+        hp = OptimizerConfig(total_steps=100, warmup_steps=1, clip_norm=clip)
+        before = (kadamw.adamw.launches, kadamw.adamw.plain_calls)
+        got_p, got_m, got_v, got_step, got_norm, got_lr = kadamw.adamw(
+            ps, gs, ms, vs, step, hp)
+        torch.cuda.synchronize()
+        launched = (kadamw.adamw.launches - before[0],
+                    kadamw.adamw.plain_calls - before[1])
+        if launched != (2 * len(shapes) + 1, 0):
+            fail(f"fused AdamW made (launches, plain calls) {launched}, "
+                 f"want ({2 * len(shapes) + 1}, 0)")
+        # the plain branch leaf by leaf (its coefficients over the whole
+        # tree), each leaf compared and freed before the next
+        coef = kadamw.plain_coefficients(gs, step, hp)
+        worst, exact = 0.0, True
+        for i in range(len(shapes)):
+            want = kadamw.plain_leaf(ps[i], gs[i].float(), ms[i], vs[i],
+                                     coef, hp)
+            for a, b in zip((got_p[i], got_m[i], got_v[i]), want):
+                exact = exact and a.dtype == b.dtype and torch.equal(a, b)
+                scale = float(b.abs().max())
+                worst = max(worst, float((a - b).abs().max()) /
+                            max(scale, 1e-30))
+            del want
+        norm_rel = abs(float(got_norm) - float(coef[0])) / float(coef[0])
+        lr_equal = bool(torch.equal(got_lr, coef[3]))
+        step_ok = int(got_step) == int(coef[2]) == 6
+        del got_p, got_m, got_v, coef
+        torch.cuda.empty_cache()
+        fused_ms = event_ms(lambda: kadamw.adamw(ps, gs, ms, vs, step, hp))
+        plain_ms = event_ms(lambda: kadamw.plain(ps, gs, ms, vs, step, hp),
+                            reps=3)
+        tag = "clip 1.0" if clip else "no clip"
+        print(f"  {tag}: fused {fused_ms:.3f} ms (bound {bound_ms:.3f} ms, "
+              f"{bound_ms / fused_ms:.1%} of it), plain branch "
+              f"{plain_ms:.3f} ms; bit for bit {exact}; worst leaf "
+              f"{worst:.2e} of its largest entry (limit "
+              f"{'0' if not clip else '1e-6'}); grad_norm {norm_rel:.2e} "
+              f"relative (limit 1e-6); lr equal {lr_equal}; launches "
+              f"{launched[0]} ({card})", flush=True)
+        if not (step_ok and lr_equal and norm_rel <= 1e-6 and
+                (exact if not clip else worst <= 1e-6)):
+            fail(f"fused AdamW ({tag}) disagrees with the plain branch")
+        stats["no_clip" if not clip else "clip"] = {
+            "fused_ms": fused_ms, "plain_ms": plain_ms, "bit_exact": exact,
+            "worst_rel": worst, "grad_norm_rel": norm_rel}
+    del ps, gs, ms, vs
+    torch.cuda.empty_cache()
+    return stats
+
+
 def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
                    reset_counts, counts, path_counts, compare) -> dict:
     """Phase 16 (the module docstring): the training path on the card."""
@@ -517,6 +629,7 @@ def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
@@ -588,6 +701,9 @@ def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
                 "(x max|plain|)", relative=True)
         del q, k, v, x, w
 
+    stats["adamw"] = fused_adamw_phase(torch, dev, cfg, card)
+    n_leaves = stats["adamw"]["leaves"]
+
     # (a) qwen2-1.5b at full width, bf16 compute, f32 master, AdamW
     hp = steps_mod.TrainHParams(
         optimizer=OptimizerConfig(total_steps=TRAIN_STEPS, warmup_steps=1),
@@ -605,6 +721,7 @@ def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
           f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens on the "
           f"cuda target", flush=True)
     reset_counts()
+    adamw_before = (kadamw.adamw.launches, kadamw.adamw.plain_calls)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with use_options(CompileOptions(target="cuda")):
@@ -618,13 +735,17 @@ def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
     got = launches(c, "flash_attention", "rmsnorm")
     want = {"flash_attention": L * TRAIN_STEPS,
             "rmsnorm": (2 * L + 1) * TRAIN_STEPS}
+    got["adamw"] = (kadamw.adamw.launches - adamw_before[0],
+                    kadamw.adamw.plain_calls - adamw_before[1])
+    want["adamw"] = ((2 * n_leaves + 1) * TRAIN_STEPS, 0)
     print(f"  {wall_s:.1f} s with init; losses "
           f"{', '.join(f'{x:.5f}' for x in losses)}; launches "
           f"{ {n: l for n, (l, _) in c.items() if l} }", flush=True)
     no_plain(c, "bf16 training")
     if got != want:
-        fail(f"bf16 training launched {got}, want {want} ({L} flash and "
-             f"{2 * L + 1} RMSNorm a step)")
+        fail(f"bf16 training launched {got}, want {want} ({L} flash, "
+             f"{2 * L + 1} RMSNorm and {2 * n_leaves + 1} fused AdamW a "
+             "step, no plain AdamW)")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
             not losses[-1] < losses[0]:
         fail(f"bf16 training losses {losses}: want {TRAIN_STEPS} finite, "
@@ -688,7 +809,8 @@ def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
     last = by_name[-1]
     top = sorted(last.items(), key=lambda kv: -kv[1])[:8]
     kernel_ms = {k: sum(t for n, t in last.items() if k in n)
-                 for k in ("lapis_flash_sm90", "lapis_rmsnorm")}
+                 for k in ("lapis_flash_sm90", "lapis_rmsnorm",
+                           "lapis_adamw")}
     print("  largest kernels of the last step (profiler, full names):",
           flush=True)
     for name, t in top:
@@ -696,7 +818,9 @@ def training_phase(torch, np, dev, get_config, CompileOptions, use_options,
     print(f"  the hand kernels in the last step: bf16 flash "
           f"{kernel_ms['lapis_flash_sm90']:.3f} ms over {L} launches, "
           f"RMSNorm {kernel_ms['lapis_rmsnorm']:.3f} ms over {2 * L + 1} "
-          f"(profiler; their backward is the plain versions')", flush=True)
+          f"(profiler; their backward is the plain versions'), fused AdamW "
+          f"{kernel_ms['lapis_adamw']:.3f} ms over {2 * n_leaves + 1}",
+          flush=True)
     print(f"  profiled run's losses equal the first run's: "
           f"{out_p['losses'] == losses}", flush=True)
     stats["qwen2_bf16"] = {"losses": losses, "steps": per_step,
@@ -1906,6 +2030,7 @@ def distribution_phase(ctx) -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.models.spec import tree_leaves, tree_leaves_with_path
     from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim import optimizer as optim_mod
 
     reset_counts, counts, path_counts, compare, dev = (
         ctx["reset_counts"], ctx["counts"], ctx["path_counts"],
@@ -1992,15 +2117,29 @@ def distribution_phase(ctx) -> dict:
               "16's seed and batches, bf16 over an f32 master, AdamW) "
               "unmeshed, then as DTensors on a 1 x 1 (data, model) mesh "
               "over a world-size-1 NCCL group", flush=True)
-        state = steps_mod.init_train_state(model, hp, 0, dev)
-        plain_run = []
-        with use_options(CompileOptions(target="cuda")):
-            for b in batches:
-                state, met = step(state, b)
-                plain_run.append((float(met["loss"]),
-                                  float(met["grad_norm"])))
-        del state, met
-        torch.cuda.empty_cache()
+        # the unmeshed steps twice: on the fused AdamW kernels, as phase
+        # 16 runs them, and on the plain branch, which DTensor leaves
+        # take; the meshed steps are held to the plain branch's (the
+        # two branches' norms sum in other orders, and a 1-ulp clip
+        # scale moves ~1,600 bf16 weights by an ulp after step 1)
+        unmeshed = {}
+        for branch in ("fused", "plain"):
+            state = steps_mod.init_train_state(model, hp, 0, dev)
+            rows = []
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(use_options(CompileOptions(
+                    target="cuda")))
+                if branch == "plain":
+                    stack.enter_context(mock.patch.object(
+                        optim_mod, "_fusable", lambda leaves: False))
+                for b in batches:
+                    state, met = step(state, b)
+                    rows.append((float(met["loss"]),
+                                 float(met["grad_norm"])))
+            unmeshed[branch] = rows
+            del state, met
+            torch.cuda.empty_cache()
+        plain_run = unmeshed["plain"]
         t0 = time.perf_counter()
         mesh = mesh_mod.make_device_mesh("cuda")
         mesh_s = time.perf_counter() - t0
@@ -2029,8 +2168,10 @@ def distribution_phase(ctx) -> dict:
         print(f"  NCCL group + mesh {mesh_s:.2f} s; placements of "
               f"layers/attn/wq: "
               f"{dstate['params']['layers']['attn']['wq'].placements}; "
-              f"meshed (loss, grad norm) {meshed}, unmeshed {plain_run}, "
-              f"phase 16's losses {p16}; bitwise equal: {bitwise}; meshed "
+              f"meshed (loss, grad norm) {meshed}, unmeshed on the plain "
+              f"branch {plain_run}, on the fused kernels "
+              f"{unmeshed['fused']}, phase 16's losses {p16}; meshed and "
+              f"plain bitwise equal: {bitwise}; meshed "
               f"step walls {', '.join(f'{w:.1f}' for w in walls)} ms; "
               f"launches {got}, plain calls {plain_calls} ({card})",
               flush=True)
@@ -2043,11 +2184,18 @@ def distribution_phase(ctx) -> dict:
             if abs(ml - ul) > 1e-6 * abs(ul) or abs(mg - ug) > 1e-6 * abs(ug):
                 fail("phase 19b: the meshed losses or gradient norms are "
                      "more than 1e-6 from the unmeshed ones")
-        if p16 is not None and any(abs(ml - l) > 1e-6 * abs(l) for
-                                   (ml, _), l in zip(meshed, p16)):
-            fail("phase 19b: the meshed losses are more than 1e-6 from "
-                 "phase 16's")
+        if p16 is not None and any(abs(fl - l) > 1e-6 * abs(l) for
+                                   (fl, _), l in zip(unmeshed["fused"], p16)):
+            fail("phase 19b: the unmeshed fused losses are more than 1e-6 "
+                 "from phase 16's")
+        # fused against plain: phase 16b's bf16 bars (loss 1e-3, gradient
+        # norm 1e-2 relative)
+        for (fl, fg), (pl, pg) in zip(unmeshed["fused"], plain_run):
+            if abs(fl - pl) > 1e-3 * abs(pl) or abs(fg - pg) > 1e-2 * abs(pg):
+                fail("phase 19b: the fused AdamW steps are more than phase "
+                     "16b's bf16 bars from the plain branch's")
         stats["meshed_train"] = {"meshed": meshed, "unmeshed": plain_run,
+                                 "unmeshed_fused": unmeshed["fused"],
                                  "phase16_losses": p16,
                                  "bitwise": bitwise, "wall_ms": walls,
                                  "launches": got, "mesh_s": mesh_s}

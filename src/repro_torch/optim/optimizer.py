@@ -11,9 +11,23 @@ the state's step inside the update, the gradient transforms and the
 clip see the whole tree first, and each leaf's update is the
 reference's formula in its order of f32 operations.  The master weights
 live here; the train step casts master → compute dtype, differentiates
-the compute tree, and hands its (bf16) gradients back, cast up to f32
-here.  An optional int8 + error-feedback gradient transform is a
-further knob.
+the compute tree, and hands its (bf16) gradients back.  An optional
+int8 + error-feedback gradient transform is a further knob.
+
+Which path runs is read from the leaves, with no switch:
+
+* AdamW over plain tensors (``type(t) is torch.Tensor``, every leaf on
+  the CPU or every leaf on the card): ``kernels/adamw.py::adamw``.  On
+  the card that is the fused kernels of ``csrc/adamw.cu`` (the gradients
+  read in their own dtype, 2 × leaves + 1 launches, no host sync, the
+  plain branch's bits without clipping); on the CPU its plain version.
+* AdamW over DTensors (a mesh: the norm would need a reduction across
+  shards) or meta tensors (the dry-run): the plain branch,
+  ``kernels/adamw.py::plain``, through torch's own dispatch.
+* Adafactor: its plain branch here, on every device.
+
+A gradient transform (``bf16``, ``int8_ef``) runs first in plain torch on
+f32 copies, and AdamW reads its f32 output.
 """
 from __future__ import annotations
 
@@ -23,6 +37,7 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw as fused_adamw
 from repro_torch.models.spec import tree_leaves, tree_map
 
 
@@ -117,46 +132,60 @@ def transform_grads(grads, state: dict, hp: OptimizerConfig) -> Tuple:
 # ---------------------------------------------------------------------------
 
 def global_norm(tree) -> torch.Tensor:
+    """The f32 norm over every leaf of a tree (or of a list of leaves)."""
+    leaves = tree if isinstance(tree, list) else tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(tree)))
+                          for g in leaves))
+
+
+def clip_scale(gnorm, hp: OptimizerConfig):
+    """The global-norm clip's factor on every gradient (1.0 unclipped)."""
+    return torch.clamp(hp.clip_norm / torch.clamp(gnorm, min=1e-12),
+                       max=1.0) if hp.clip_norm else 1.0
+
+
+def _fusable(leaves) -> bool:
+    """Every leaf a plain tensor (no DTensor or other subclass) on the CPU
+    or the card: :func:`kernels.adamw.adamw` takes them (and raises on a
+    mix of the two)."""
+    return all(type(t) is torch.Tensor and t.device.type in ("cpu", "cuda")
+               for t in leaves)
 
 
 @torch.no_grad()
 def opt_update(params, grads, state: dict, hp: OptimizerConfig
                ) -> Tuple[Any, dict, dict]:
     """→ (new_params, new_state, metrics).  params / grads trees align;
-    grads may be bf16 (cast up here).  The clip scale multiplies each
+    grads may be bf16.  The clip scale multiplies each
     gradient inside its leaf's update, so no second scaled tree is
     held (the reference scales the tree first; the values are the
-    same)."""
+    same).  The module docstring says which path runs."""
+    if hp.kind == "adamw":
+        if hp.grad_transform != "none":
+            grads, state = transform_grads(
+                tree_map(lambda g: g.to(torch.float32), grads), state, hp)
+        quads = []
+        tree_map(lambda *t: quads.append(t), params, grads, state["m"],
+                 state["v"])
+        ps, gs, ms, vs = (list(x) for x in zip(*quads))
+        update = fused_adamw.adamw if _fusable(ps + gs + ms + vs) \
+            else fused_adamw.plain
+        new_p, new_m, new_v, step, gnorm, lr = update(
+            ps, gs, ms, vs, state["step"], hp)
+
+        def like(leaves):
+            it = iter(leaves)
+            return tree_map(lambda _: next(it), params)
+        return like(new_p), dict(state, m=like(new_m), v=like(new_v),
+                                 step=step), {"grad_norm": gnorm, "lr": lr}
+
     grads = tree_map(lambda g: g.to(torch.float32), grads)
     grads, state = transform_grads(grads, state, hp)
     gnorm = global_norm(grads)
-    scale = torch.clamp(hp.clip_norm / torch.clamp(gnorm, min=1e-12),
-                        max=1.0) if hp.clip_norm else 1.0
+    scale = clip_scale(gnorm, hp)
     step = state["step"] + 1
     lr = lr_at(step, hp)
     metrics = {"grad_norm": gnorm, "lr": lr}
-
-    if hp.kind == "adamw":
-        b1, b2 = hp.b1, hp.b2
-        bc1 = 1 - b1 ** step.to(torch.float32)
-        bc2 = 1 - b2 ** step.to(torch.float32)
-
-        def upd(p, g, m, v):
-            g = g * scale
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * torch.square(g)
-            mh = m / bc1
-            vh = v / bc2
-            pf = p.to(torch.float32)
-            new_p = (pf - lr * (mh / (torch.sqrt(vh) + hp.eps)
-                                + hp.weight_decay * pf)).to(p.dtype)
-            return new_p, m, v
-
-        new_params, m, v = _unzip(
-            tree_map(upd, params, grads, state["m"], state["v"]), 3)
-        return new_params, dict(state, m=m, v=v, step=step), metrics
 
     if hp.kind == "adafactor":
         eps = 1e-30
