@@ -77,8 +77,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (held to the Python twin) and its mean |error| against an f64
    evaluation no larger than the plain version's; decode attention at
    8 slots x 12 query / 2 KV heads x 128 over 2048 positions with ragged
-   lengths that include 0, 1 and 2048, a window case and a stride-0
-   batch (the chunked prefill's broadcast row); flash attention at
+   lengths that include 0, 1 and 2048, a window case, a stride-0
+   batch (the chunked prefill's broadcast row) and grok-1's logit cap
+   (30 and 0.5, at 48 / 8 heads x 128 over 1152 positions, 2 rows split
+   and 264 not, the queries times 10); flash attention at
    12 / 2 heads x 128 over 2048 causal positions and the sweep cases of
    ``tests/test_kernels.py`` (window, softcap, Sq != Skv, ragged tails),
    bf16 on the wgmma kernel and f32 on the FFMA one; each timed in bf16
@@ -223,8 +225,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     card, the cut printed; a cell that does not fit the free memory
     fails), each path's RMSNorm, decode attention and page gather held to
     their plain versions at the path's shapes, bf16 and f32, at phase 7's
-    tolerances: (a) grok-1-314b (d_model 6144, 48 / 8 heads x 128, d_ff
-    32768, 8 experts top-2, vocab 131072, softcap 30) at 2 of 64 layers
+    tolerances: (a) grok-1-314b as published (d_model 6144, 48 / 8 heads
+    x 128, d_ff 32768, 8 experts top-2 dropless with unrenormalised
+    gates, vocab 131072 tied, softcap 30 in prefill and decode, norms
+    after each sublayer too, the two multipliers) at 2 of 64 layers
     (its f32 tree fits): the softcapped flash kernel at its prefill shape
     against the plain version; ``serve_paged`` (the engine
     of ``launch.serve.main --paged``) over 8 requests of 64-512 prompt
@@ -1614,8 +1618,9 @@ def families_phase(ctx) -> dict:
     torch.cuda.synchronize()
     sc = path_counts["grok decode step"] = counts()
     per_step = launched(sc)
+    # grok-1's norms before and after each sublayer, and the final one
     want = {"decode_attention": cfg.n_layers, "page_gather": 2 * cfg.n_layers,
-            "rmsnorm": 2 * cfg.n_layers + 1}
+            "rmsnorm": 4 * cfg.n_layers + 1}
     if any(per_step.get(n) != w for n, w in want.items()) or \
             any(p for _, p in sc.values()):
         fail(f"grok decode step launched {per_step} with plain calls; want "
@@ -3100,11 +3105,11 @@ def main() -> int:
             small_fns.update({f"{n} {ks.defines}": body for n, body in
                               sass_functions(_build.sass(ks)).items()
                               if "lapis_bgemm_small" in n})
-    checks = [(n, body, ("HMMA", "LDGSTS") if "da_bf16_kernel" in n
+    checks = [(n, body, ("HMMA", "LDGSTS") if "decode_attention_bf16_kernel" in n
                else ("LDGSTS",)) for n, body in da_fns.items()
-              if "da_bf16_kernel" in n or "da_f32_kernel" in n]
+              if "decode_attention_bf16_kernel" in n or "decode_attention_f32_kernel" in n]
     checks += [(n, body, ("LDGSTS",)) for n, body in small_fns.items()]
-    if not any("da_bf16_kernel" in n for n, _, _ in checks) or \
+    if not any("decode_attention_bf16_kernel" in n for n, _, _ in checks) or \
             not small_fns:
         fail("no decode-attention bf16 kernel or no small batched kernel "
              "in the SASS")
@@ -3894,6 +3899,28 @@ def main() -> int:
                 da.decode_attention(q, kc, vc, win_len, window=256),
                 ref.decode_attention(q, kc, vc, win_len, window=256),
                 tol_att, f"decode_attention window 256 {tag}")
+        # grok-1's logit cap at its decode heads (48 / 8 x 128), the
+        # queries times 10 so that the scores reach the cap of 30 too;
+        # 2 rows split the positions, 264 rows do not.  Its own
+        # generator: the checks after it see the inputs they always had
+        gen_cap = torch.Generator(device=dev)
+        gen_cap.manual_seed(30)
+        for g_rows, cap in ((2, 30.0), (2, 0.5), (264, 30.0)):
+            q_g, k_g, v_g = (
+                (torch.randn(shape, generator=gen_cap, device=dev) * sc)
+                .to(dtype) for shape, sc in (
+                    ((g_rows, 48, 128), 10.0), ((g_rows, 8, 1152, 128), 1.0),
+                    ((g_rows, 8, 1152, 128), 1.0)))
+            g_len = torch.randint(1, 1153, (g_rows,), generator=gen_cap,
+                                  device=dev, dtype=torch.int32)
+            compare("decode_attention",
+                    da.decode_attention(q_g, k_g, v_g, g_len,
+                                        logit_softcap=cap),
+                    ref.decode_attention(q_g, k_g, v_g, g_len,
+                                         logit_softcap=cap),
+                    tol_att, f"decode_attention cap {cap} {g_rows}x48/8x128 "
+                    f"S=1152 {tag}")
+        del q_g, k_g, v_g
         c_rows = 128
         q_c = rand_t((c_rows, heads, hd), dtype)
         k1, v1 = kc[:1], vc[:1]

@@ -25,14 +25,20 @@ class ModelConfig:
     attn_logit_softcap: Optional[float] = None
     # norms / activations
     norm: str = "rmsnorm"            # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    post_norms: bool = False         # grok-1: a norm after each sublayer too
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = False
+    embed_scale: float = 1.0         # the embedded input times this
+    logit_scale: float = 1.0         # the logits times this
     # MoE
     n_experts: int = 0
     experts_per_tok: int = 0
     moe_dense_residual: bool = False  # arctic: dense FFN residual branch
     dense_residual_ff: int = 0
     capacity_factor: float = 1.25
+    moe_renormalize: bool = True     # the top-k gates over their own sum
+    moe_dropless: bool = False       # no token past an expert's capacity
     moe_shard: str = "auto"           # ep | tp | auto (see models/moe.py)
     # RWKV6
     rwkv_head_dim: int = 64

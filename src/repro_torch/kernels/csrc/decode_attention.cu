@@ -2,6 +2,9 @@
 //   out[b, h*rep + g, :] = softmax_s(q[b, h*rep + g] . K[b, h, s] * scale) V[b, h, s]
 // over the valid positions s of row b: s < lengths[b], and, with a sliding
 // window, s >= lengths[b] - window.  f32 accumulation, output in q's type.
+// With a logit cap (grok-1's attention), each scaled score x becomes
+// cap * tanh(x / cap) before the softmax, as in the flash kernels; a cap of 0
+// is none, and then no score passes through tanh.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:decode_attention
 // (_decode_kernel, pallas_call at decode_attention.py:100).  There the grid is
@@ -144,7 +147,9 @@ struct Args {
   int hkv, rep, s_len, d, window, chunk, n_splits;
   int vec;           // every K / V row starts 16-byte aligned: cp.async pieces
   int vec_q;         // and every q row
-  float scale_log2;  // scale * log2(e)
+  float scale_log2;  // scale * log2(e), or 1 where the cap has already scaled
+  float cap_in;      // scale / cap (capped), else 0
+  float cap_log2;    // cap * log2(e) (capped), else 0: no cap
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -322,7 +327,7 @@ __device__ __forceinline__ void stage_tile(const Args& a, const T* kb, const T* 
 
 template <int MT, int OU>
 __global__ void __launch_bounds__(kThreads)
-da_bf16_kernel(const Args a, const Plan p) {
+decode_attention_bf16_kernel(const Args a, const Plan p) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
   const Span s = block_span(a, p.heads);
@@ -442,6 +447,14 @@ da_bf16_kernel(const Args a, const Plan p) {
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int c = 0; c < 4; ++c) sc[mt][n][c] += sc2[mt][n][c];
+      if (a.cap_log2 > 0.f) {   // the cap, in the log2 domain: cap * tanh(s * scale / cap)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) sc[mt][n][c] = a.cap_log2 * tanhf(sc[mt][n][c] * a.cap_in);
+      }
       // scale into the log2 domain and mask positions outside [lo, hi)
 #pragma unroll
       for (int n = 0; n < 2; ++n)
@@ -602,7 +615,7 @@ constexpr int kF32Scores = 16;   // heads a thread scores (half the block's 32)
 constexpr int kF32Outs = 8;      // 4-column output units a thread holds
 
 __global__ void __launch_bounds__(kThreads)
-da_f32_kernel(const Args a, const Plan p) {
+decode_attention_f32_kernel(const Args a, const Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Span s = block_span(a, p.heads);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -686,6 +699,10 @@ da_f32_kernel(const Args a, const Plan p) {
       }
       const int pos = ts + pos_i;
       const bool ok = pos >= s.lo && pos < s.hi;
+      if (a.cap_log2 > 0.f) {   // the cap, as in the bf16 kernel
+#pragma unroll
+        for (int i = 0; i < kF32Scores; ++i) acc[i] = a.cap_log2 * tanhf(acc[i] * a.cap_in);
+      }
 #pragma unroll
       for (int i = 0; i < kF32Scores; ++i) {
         const int hh = half + 2 * i;
@@ -757,7 +774,7 @@ da_f32_kernel(const Args a, const Plan p) {
 // (e_s = 0, its acc never written) is selected away.
 template <typename T, int VW>
 __global__ void __launch_bounds__(kMergeThreads)
-da_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+decode_attention_merge_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                 T* __restrict__ out, int hkv, int rep, int d, int n_splits) {
   extern __shared__ float sm[];   // m[n_splits], l[n_splits], sums[groups][d]
   float* const ms = sm;
@@ -821,8 +838,9 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
            void* part_ml, void* part_acc, int batch, int hkv, int rep, int s_len, int d,
            long q_sb, long q_sh, long k_sb, long k_sh, long k_ss, long v_sb, long v_sh,
-           long v_ss, int window, float scale, int n_splits, int chunk, void* stream) {
-  if (batch < 0 || hkv <= 0 || rep <= 0 || s_len < 0 || d <= 0 || d > 256 ||
+           long v_ss, int window, float scale, float softcap, int n_splits, int chunk,
+           void* stream) {
+  if (batch < 0 || hkv <= 0 || rep <= 0 || s_len < 0 || d <= 0 || d > 256 || !(softcap >= 0.f) ||
       (long)batch * hkv > 2147483647L || n_splits < 1 || n_splits > 4096 || chunk <= 0 ||
       (long)n_splits * chunk < s_len)
     return (int)cudaErrorInvalidValue;
@@ -834,7 +852,12 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   const long item = sizeof(T);
   Args a{q, k, v, static_cast<const int*>(lengths), out, static_cast<float*>(part_ml),
          static_cast<float*>(part_acc), q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, hkv,
-         rep, s_len, d, window, chunk, n_splits, 0, 0, scale * 1.4426950408889634f};
+         rep, s_len, d, window, chunk, n_splits, 0, 0, scale * 1.4426950408889634f, 0.f, 0.f};
+  if (softcap > 0.f) {
+    a.scale_log2 = 1.f;
+    a.cap_in = scale / softcap;
+    a.cap_log2 = softcap * 1.4426950408889634f;
+  }
   a.vec = aligned16(k, item * k_sb) && aligned16(k, item * k_sh) && aligned16(k, item * k_ss) &&
           aligned16(v, item * v_sb) && aligned16(v, item * v_sh) && aligned16(v, item * v_ss);
   a.vec_q = aligned16(q, item * q_sb) && aligned16(q, item * q_sh);
@@ -842,11 +865,12 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void (*kernel)(const Args, const Plan);
   if constexpr (kBf16)
-    kernel = p.mt == 1   ? (p.dp > 128 ? da_bf16_kernel<1, 16> : da_bf16_kernel<1, 8>)
-             : p.mt == 2 ? da_bf16_kernel<2, 4>
-                         : da_bf16_kernel<4, 2>;
+    kernel = p.mt == 1 ? (p.dp > 128 ? decode_attention_bf16_kernel<1, 16>
+                                     : decode_attention_bf16_kernel<1, 8>)
+             : p.mt == 2 ? decode_attention_bf16_kernel<2, 4>
+                         : decode_attention_bf16_kernel<4, 2>;
   else
-    kernel = da_f32_kernel;
+    kernel = decode_attention_f32_kernel;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
@@ -856,7 +880,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   if (rep > 65535) return (int)cudaErrorInvalidValue;
   const int vw = d % 4 == 0 ? 4 : 1;
   const size_t merge_smem = sizeof(float) * (2 * n_splits + kMergeThreads / (d / vw) * d);
-  auto merge = vw == 4 ? da_merge_kernel<T, 4> : da_merge_kernel<T, 1>;
+  auto merge =
+      vw == 4 ? decode_attention_merge_kernel<T, 4> : decode_attention_merge_kernel<T, 1>;
   merge<<<dim3(batch * hkv, rep), kMergeThreads, merge_smem, st>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
       static_cast<T*>(out), hkv, rep, d, n_splits);
@@ -870,10 +895,10 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
                       void* out, void* part_ml, void* part_acc, int batch, int hkv, int rep,  \
                       int s_len, int d, long q_sb, long q_sh, long k_sb, long k_sh,           \
                       long k_ss, long v_sb, long v_sh, long v_ss, int window, float scale,    \
-                      int n_splits, int chunk, void* stream) {                                \
+                      float softcap, int n_splits, int chunk, void* stream) {                 \
     return launch<T>(q, k, v, lengths, out, part_ml, part_acc, batch, hkv, rep, s_len, d,     \
-                     q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, window, scale, n_splits, \
-                     chunk, stream);                                                          \
+                     q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, window, scale, softcap,  \
+                     n_splits, chunk, stream);                                                \
   }
 LAPIS_DA_EXPORT(lapis_decode_attention_f32, float)
 LAPIS_DA_EXPORT(lapis_decode_attention_bf16, __nv_bfloat16)

@@ -10,7 +10,8 @@ enough of them to give the card about two blocks per SM
 (:func:`launch_plan`), streams its chunk's K and V tiles through a
 ``cp.async`` ring in shared memory and runs the online softmax on them
 — bf16 on the tensor cores (``mma.sync``), f32 on the CUDA cores — and
-a second kernel merges the chunks of a row.  K and V may be broadcast
+a second kernel merges the chunks of a row.  A logit cap (grok-1's) turns each scaled score x
+into cap · tanh(x / cap) before the softmax.  K and V may be broadcast
 over the batch with stride 0 (the chunked prefill hands C query rows
 one gathered row); the kernel reads them through their strides, so
 nothing is copied.  On CPU tensors the wrapper runs the plain version
@@ -48,8 +49,8 @@ def _launcher(dtype: torch.dtype):
         fn = getattr(_build.load(decode_attention_kernel()), _FNS[dtype])
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
             [ctypes.c_long] * 8 + [ctypes.c_int, ctypes.c_float,
-                                   ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_void_p]
+                                   ctypes.c_float, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LAUNCHERS[dtype] = fn
     return fn
@@ -140,13 +141,15 @@ def _check(q, k_cache, v_cache, lengths) -> None:
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     logit_softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B, Hq, D); caches: (B, Hkv, S, D); lengths: (B,) int32 →
-    (B, Hq, D) in q's dtype."""
+    (B, Hq, D) in q's dtype.  ``logit_softcap``: None or 0 for no cap."""
     if _build.on_cpu([q, k_cache, v_cache, lengths], "decode_attention"):
         decode_attention.plain_calls += 1
         return ref.decode_attention(q, k_cache, v_cache, lengths,
-                                    window=window, scale=scale)
+                                    window=window, scale=scale,
+                                    logit_softcap=logit_softcap)
     _check(q, k_cache, v_cache, lengths)
     B, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
@@ -178,7 +181,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     B, Hkv, rep, S, D, q.stride(0), q.stride(1),
                     *k_cache.stride()[:3], *v_cache.stride()[:3],
                     -1 if window is None else int(window), float(scale),
-                    n_splits, chunk,
+                    float(logit_softcap or 0.0), n_splits, chunk,
                     torch.cuda.current_stream(q.device).cuda_stream),
                  "decode_attention")
     decode_attention.launches += 1

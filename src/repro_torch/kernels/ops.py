@@ -295,11 +295,13 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
-                     scale=None, options: Optional[CompileOptions] = None):
+                     scale=None, logit_softcap=None,
+                     options: Optional[CompileOptions] = None):
     """One-token cached attention: the decode kernel where the backend
-    wants kernels, else the plain version."""
+    wants kernels, else the plain version; both cap the scores as
+    :func:`attention` does where ``logit_softcap`` is set."""
     options = options or current_options()
-    kw = {"window": window, "scale": scale}
+    kw = {"window": window, "scale": scale, "logit_softcap": logit_softcap}
     if _use_kernels(options):
         return _kernel_call(
             "decode_attention",

@@ -116,16 +116,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     logit_softcap: Optional[float] = None) -> torch.Tensor:
     """One-token attention against a KV cache.
 
-    q: (B, Hq, D); caches: (B, Hkv, S, D); lengths: (B,) valid prefix."""
+    q: (B, Hq, D); caches: (B, Hkv, S, D); lengths: (B,) valid prefix;
+    ``logit_softcap`` caps the scaled scores as :func:`attention` does."""
     B, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     rep = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     qg = reshape(q, B, Hkv, rep, D).float()
     logits = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale
+    if logit_softcap:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
     pos = torch.arange(S, device=q.device)[None, None, None, :]
     lens = lengths.to(q.device)[:, None, None, None]
     valid = pos < lens

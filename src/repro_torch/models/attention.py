@@ -23,6 +23,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import apply_norm, cdt, norm_spec
 from repro_torch.models.spec import Spec
+from repro_torch.runtime import spans
 
 
 def attention_spec(cfg) -> dict:
@@ -60,8 +61,8 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, positions) -> Tuple:
     k = reshape(k, B, S, cfg.n_kv_heads, cfg.head_dim)
     v = reshape(v, B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = apply_norm(p["q_norm"], q, cfg.norm)
-        k = apply_norm(p["k_norm"], k, cfg.norm)
+        q = apply_norm(p["q_norm"], q, cfg.norm, eps=cfg.norm_eps)
+        k = apply_norm(p["k_norm"], k, cfg.norm, eps=cfg.norm_eps)
     if positions is not None:
         if cfg.mrope:
             kw = {"head_dim": cfg.head_dim, "theta": cfg.rope_theta,
@@ -193,7 +194,8 @@ def apply_attention_decode(p: dict, x: torch.Tensor, cfg, *, cache: dict,
     kc, vc = _cache_views(cache, cdt(cfg))
     lengths = torch.full((B,), length + 1, dtype=torch.int32,
                          device=x.device)
-    out = kops.decode_attention(q, kc, vc, lengths, window=window)
+    out = kops.decode_attention(q, kc, vc, lengths, window=window,
+                                logit_softcap=cfg.attn_logit_softcap)
     return constrain_batch(out.reshape(B, cfg.q_dim) @ p["wo"].to(x.dtype)), \
         cache
 
@@ -249,7 +251,8 @@ def apply_attention_decode_paged(p: dict, x: torch.Tensor, cfg, *,
     int32.  Appends via ``paged.append`` and gathers via
     ``paged.gather``, both compiled through the pipeline, then runs the
     decode-attention kernel with per-row lengths masking each slot's
-    stale tail.  Returns (out (B, D), the new pools)."""
+    stale tail (the three inside the span ``attn.decode``).  Returns
+    (out (B, D), the new pools)."""
     B, _ = x.shape
     pos = lengths[:, None].to(torch.int32)             # (B, S=1) per-row
     if cfg.mrope:
@@ -262,11 +265,13 @@ def apply_attention_decode_paged(p: dict, x: torch.Tensor, cfg, *,
         new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         new = {"k": k, "v": v}
-    pools = {key: cops.page_append(pools[key], table, lengths, new[key],
-                                   block_size=block_size)
-             for key in pools}
-    kc, vc = _gather_views(pools, table, lengths, block_size, cfg)
-    out = kops.decode_attention(q, kc, vc, lengths + 1, window=window)
+    with spans.span("attn.decode"):
+        pools = {key: cops.page_append(pools[key], table, lengths, new[key],
+                                       block_size=block_size)
+                 for key in pools}
+        kc, vc = _gather_views(pools, table, lengths, block_size, cfg)
+        out = kops.decode_attention(q, kc, vc, lengths + 1, window=window,
+                                    logit_softcap=cfg.attn_logit_softcap)
     return out.reshape(B, cfg.q_dim) @ p["wo"].to(x.dtype), pools
 
 
@@ -326,5 +331,6 @@ def apply_attention_prefill_chunk_paged(p: dict, x: torch.Tensor, cfg, *,
     kcb = kc.expand((C,) + tuple(kc.shape[1:]))
     vcb = vc.expand((C,) + tuple(vc.shape[1:]))
     row_lengths = start + 1 + torch.arange(C, dtype=torch.int32, device=dev)
-    out = kops.decode_attention(q, kcb, vcb, row_lengths, window=window)
+    out = kops.decode_attention(q, kcb, vcb, row_lengths, window=window,
+                                logit_softcap=cfg.attn_logit_softcap)
     return out.reshape(C, cfg.q_dim) @ p["wo"].to(x.dtype), pools

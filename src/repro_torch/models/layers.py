@@ -50,9 +50,12 @@ def apply_embed(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     mesh the table is first gathered along the vocab (its d_model dim
     stays sharded): the rows are then a plain lookup, where DTensor's
     vocab-sharded lookup and an indexing's backward have no strategy
-    that works across torch releases; the identity without a mesh."""
+    that works across torch releases; the identity without a mesh.
+    Times ``cfg.embed_scale`` (grok-1's embedding multiplier) where it is
+    not 1."""
     table = constrain_params(p["table"], (None, "embed"))
-    return F.embedding(tokens.long(), table).to(cdt(cfg))
+    x = F.embedding(tokens.long(), table).to(cdt(cfg))
+    return x * cfg.embed_scale if cfg.embed_scale != 1.0 else x
 
 
 def apply_unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,21 @@ reference's semantics, padding included: the expert products run over
 every slot, filled or empty (an empty slot holds zeros and gives zeros,
 since act(0) = 0 for silu and gelu).
 
+grok-1 as published routes without drops and keeps its gates as the
+softmax gave them.  ``cfg.moe_dropless`` raises the slots to the largest
+load the router gave an expert in a group, rounded up to 128; that load
+is read from the device only where a group holds more tokens than the
+slots (an expert takes a token once, so it cannot pass them otherwise:
+never at decode); on meta tensors, which hold no load, the slots stay
+the capacity's.  ``cfg.moe_renormalize`` (the reference's) divides the
+top-k gates by their sum.
+
+The three phases run in the spans ``moe.route`` (router, softmax,
+top-k, slot assignment and scatter), ``moe.experts`` (the three
+products) and ``moe.combine`` (the gated gather back), and each call
+counts ``moe.slot_rows`` (G · E · C) and ``moe.routed_rows`` (T · k)
+(``runtime/spans.py``: recorded only under a profiler).
+
 Activations are constrained at the reference's four places
 (``dist.sharding.constrain``: the identity without a mesh).  The three
 expert products are ``torch.einsum``, as the reference leaves them to
@@ -28,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.dist.sharding import constrain, constrain_batch, reshape
 from repro_torch.models.layers import activation
 from repro_torch.models.spec import Spec
+from repro_torch.runtime import spans
 
 
 def _expert_axes(cfg) -> Tuple:
@@ -110,48 +126,59 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
     G = _n_groups(T)
     Tg = T // G
     C = capacity(Tg, cfg)
-    xt = reshape(x, G, Tg, M)
-    xt = constrain(xt, "batch", None, None)
+    with spans.span("moe.route"):
+        xt = reshape(x, G, Tg, M)
+        xt = constrain(xt, "batch", None, None)
 
-    logits = (xt @ p["router"].to(dt)).float()                  # (G,Tg,E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = top_k(probs, k)                     # (G,Tg,k)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+        logits = (xt @ p["router"].to(dt)).float()              # (G,Tg,E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_idx = top_k(probs, k)                 # (G,Tg,k)
+        if cfg.moe_renormalize:
+            gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    # load-balancing aux loss (Switch-style, global means)
-    me = probs.mean(dim=(0, 1))                                 # (E,)
-    ce = F.one_hot(expert_idx, E).float().sum(dim=2).mean(dim=(0, 1))
-    aux = E * (me * ce).sum()
+        # load-balancing aux loss (Switch-style, global means)
+        me = probs.mean(dim=(0, 1))                             # (E,)
+        ce = F.one_hot(expert_idx, E).float().sum(dim=2).mean(dim=(0, 1))
+        aux = E * (me * ce).sum()
 
-    # slot assignment per group: (Tg, k) flattened in priority order,
-    # cumsum per expert → capacity slots; a slot past C drops the token
-    flat_expert = expert_idx.transpose(1, 2).reshape(G, k * Tg)
-    onehot = F.one_hot(flat_expert, E)                          # (G,kTg,E)
-    slots = onehot.cumsum(dim=1) - 1
-    slot = torch.gather(slots, 2, flat_expert[..., None])[..., 0]
-    keep = slot < C
-    slot = torch.where(keep, slot, 0)
+        # slot assignment per group: (Tg, k) flattened in priority order,
+        # cumsum per expert → capacity slots; a slot past C drops the
+        # token (dropless: C is at least the largest load)
+        flat_expert = expert_idx.transpose(1, 2).reshape(G, k * Tg)
+        onehot = F.one_hot(flat_expert, E)                      # (G,kTg,E)
+        slots = onehot.cumsum(dim=1) - 1
+        if cfg.moe_dropless and Tg > C and slots.device.type != "meta":
+            load = int(slots[:, -1].max()) + 1
+            C = max(C, -(-load // 128) * 128)
+        slot = torch.gather(slots, 2, flat_expert[..., None])[..., 0]
+        keep = slot < C
+        slot = torch.where(keep, slot, 0)
 
-    # scatter tokens into the per-group (E, C, M) buffers.  Each slot
-    # receives at most one kept token; a dropped token adds an exact 0
-    # into slot 0, so the accumulating scatter is exact in any order
-    token_ids = torch.arange(Tg, device=dev).repeat(k)          # (kTg,)
-    gi = torch.arange(G, device=dev)[:, None].expand(G, k * Tg)
-    contrib = torch.where(keep[..., None], xt[:, token_ids], 0)
-    buf = torch.zeros((G, E, C, M), dtype=dt, device=dev).index_put(
-        (gi, flat_expert, slot), contrib, accumulate=True)
-    buf = constrain(buf, "batch", "experts", None, None)
+        # scatter tokens into the per-group (E, C, M) buffers.  Each slot
+        # receives at most one kept token; a dropped token adds an exact
+        # 0 into slot 0, so the accumulating scatter is exact in any order
+        token_ids = torch.arange(Tg, device=dev).repeat(k)      # (kTg,)
+        gi = torch.arange(G, device=dev)[:, None].expand(G, k * Tg)
+        contrib = torch.where(keep[..., None], xt[:, token_ids], 0)
+        buf = torch.zeros((G, E, C, M), dtype=dt, device=dev).index_put(
+            (gi, flat_expert, slot), contrib, accumulate=True)
+        buf = constrain(buf, "batch", "experts", None, None)
+    spans.count("moe.slot_rows", G * E * C)
+    spans.count("moe.routed_rows", T * k)
 
-    out_buf = expert_ffn(p, buf, cfg)
-    out_buf = constrain(out_buf, "batch", "experts", None, None)
+    with spans.span("moe.experts"):
+        out_buf = expert_ffn(p, buf, cfg)
+        out_buf = constrain(out_buf, "batch", "experts", None, None)
 
     # gather back, gate-weighted.  A token's k picks (k = 2 for both MoE
     # configs) add into a zero row: 0 + a + b, the same in either order
-    gates_flat = gate_vals.transpose(1, 2).reshape(G, k * Tg).to(dt)
-    picked = out_buf[gi, flat_expert, slot]                     # (G,kTg,M)
-    picked = torch.where(keep[..., None], picked, 0) * gates_flat[..., None]
-    out = torch.zeros((G, Tg, M), dtype=dt, device=dev).index_put(
-        (gi, token_ids.expand(G, k * Tg)), picked, accumulate=True)
+    with spans.span("moe.combine"):
+        gates_flat = gate_vals.transpose(1, 2).reshape(G, k * Tg).to(dt)
+        picked = out_buf[gi, flat_expert, slot]                 # (G,kTg,M)
+        picked = torch.where(keep[..., None], picked, 0) \
+            * gates_flat[..., None]
+        out = torch.zeros((G, Tg, M), dtype=dt, device=dev).index_put(
+            (gi, token_ids.expand(G, k * Tg)), picked, accumulate=True)
 
     if cfg.moe_dense_residual:
         g = activation(cfg.act)(xt @ p["res_gate"].to(dt))

@@ -37,15 +37,14 @@ from repro_torch.dist.sharding import constrain
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru_block as rg_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import apply_embed, apply_norm, cdt
 from repro_torch.models.transformer import (_cross_kv, _embed_input,
                                             _inv_timescales, _lm_head,
                                             _positions_for, _sinusoid,
-                                            encode, layer_params,
-                                            stack_trees, take)
+                                            decoder_layer, encode,
+                                            layer_params, stack_trees, take)
 
 
 def _paged(cfg) -> None:
@@ -55,14 +54,6 @@ def _paged(cfg) -> None:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"paged KV cache supports dense/moe families, not {cfg.family}")
-
-
-def _ffn(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
-    """A decoder layer's feed-forward half: the gated MLP, or the MoE
-    (whose aux loss serving drops, as the reference's does)."""
-    if cfg.family == "moe":
-        return moe_mod.apply_moe(lp["moe"], h, cfg)[0]
-    return mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
 
 
 def _group_patterns(cfg) -> list:
@@ -175,20 +166,20 @@ def paged_decode_step(params, token: torch.Tensor, cache: Dict[str, list],
     Returns (logits (B, V), the new per-layer pools)."""
     _paged(cfg)
     x = apply_embed(params["embed"], token[:, None], cfg)[:, 0]
-    x = constrain(x, "batch", "embed")
+    x = constrain(x, "batch", "embed")[:, None, :]
     new: Dict[str, list] = {k: [] for k in cache}
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        h = apply_norm(lp["ln1"], x[:, None, :], cfg.norm)[:, 0]
-        a, pools = attn.apply_attention_decode_paged(
-            lp["attn"], h, cfg, pools=_layer_pools(cache, i), table=table,
-            lengths=lengths, block_size=block_size)
-        x = x + a
-        h = apply_norm(lp["ln2"], x[:, None, :], cfg.norm)
-        x = x + _ffn(lp, h, cfg)[:, 0]
+
+        def attend(h, lp=lp, i=i):
+            a, pools = attn.apply_attention_decode_paged(
+                lp["attn"], h[:, 0], cfg, pools=_layer_pools(cache, i),
+                table=table, lengths=lengths, block_size=block_size)
+            return a[:, None], pools
+        x, pools, _ = decoder_layer(lp, x, cfg, attend)
         for k in new:
             new[k].append(pools[k])
-    x = apply_norm(params["final_norm"], x[:, None, :], cfg.norm)
+    x = apply_norm(params["final_norm"], x, cfg.norm, eps=cfg.norm_eps)
     return _lm_head(params, x, cfg)[:, 0], new
 
 
@@ -203,20 +194,20 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, start: int,
     enforces ``prefill_chunk % block_size == 0``); the final chunk may
     end mid-block.  Returns (last-token logits (V,), the new pools)."""
     _paged(cfg)
-    x = apply_embed(params["embed"], tokens[None], cfg)[0]     # (C, D)
+    x = apply_embed(params["embed"], tokens[None], cfg)        # (1, C, D)
     new: Dict[str, list] = {k: [] for k in cache}
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        h = apply_norm(lp["ln1"], x[None], cfg.norm)[0]
-        a, pools = attn.apply_attention_prefill_chunk_paged(
-            lp["attn"], h, cfg, pools=_layer_pools(cache, i),
-            table_row=table_row, start=start, block_size=block_size)
-        x = x + a
-        h = apply_norm(lp["ln2"], x[None], cfg.norm)
-        x = x + _ffn(lp, h, cfg)[0]
+
+        def attend(h, lp=lp, i=i):
+            a, pools = attn.apply_attention_prefill_chunk_paged(
+                lp["attn"], h[0], cfg, pools=_layer_pools(cache, i),
+                table_row=table_row, start=start, block_size=block_size)
+            return a[None], pools
+        x, pools, _ = decoder_layer(lp, x, cfg, attend)
         for k in new:
             new[k].append(pools[k])
-    x = apply_norm(params["final_norm"], x[None], cfg.norm)
+    x = apply_norm(params["final_norm"], x, cfg.norm, eps=cfg.norm_eps)
     return _lm_head(params, x[:, -1:, :], cfg)[0, 0], new
 
 
@@ -245,7 +236,7 @@ def prefill(params, batch: dict, cfg, *, max_len: int,
     else:
         x, cache = _prefill_dense(params, x, cfg, positions, max_len,
                                   quantized)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+    x = apply_norm(params["final_norm"], x, cfg.norm, eps=cfg.norm_eps)
     return _lm_head(params, x[:, -1:, :], cfg)[:, 0], cache
 
 
@@ -267,13 +258,11 @@ def _prefill_dense(params, x, cfg, positions, max_len, quantized):
     per_layer = []
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        h = apply_norm(lp["ln1"], x, cfg.norm)
-        a, kv = attn.apply_attention_prefill(lp["attn"], h, cfg,
-                                             positions=positions,
-                                             quantized=quantized)
-        x = x + a
-        h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = constrain(x + _ffn(lp, h, cfg), "batch", "seq", None)
+        x, kv, _ = decoder_layer(
+            lp, x, cfg, lambda h, lp=lp: attn.apply_attention_prefill(
+                lp["attn"], h, cfg, positions=positions,
+                quantized=quantized))
+        x = constrain(x, "batch", "seq", None)
         per_layer.append(kv)
     return x, {"kv": _pad_kv(per_layer, S, max_len)}
 
@@ -348,23 +337,26 @@ def decode_step(params, token: torch.Tensor, cache: dict, length: int,
         x, new = _decode_encdec(params, x, cache, length, cfg)
     else:
         x, new = _decode_dense(params, x, cache, length, cfg)
-    x = apply_norm(params["final_norm"], x[:, None, :], cfg.norm)
+    x = apply_norm(params["final_norm"], x[:, None, :], cfg.norm,
+                   eps=cfg.norm_eps)
     return _lm_head(params, x, cfg)[:, 0], new
 
 
 def _decode_dense(params, x, cache, length, cfg):
     per_layer = []
+    x = x[:, None, :]
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        h = apply_norm(lp["ln1"], x[:, None, :], cfg.norm)[:, 0]
-        kv = {k: a[i] for k, a in cache["kv"].items()}
-        a, kv = attn.apply_attention_decode(lp["attn"], h, cfg, cache=kv,
-                                            length=length)
-        x = x + a
-        h = apply_norm(lp["ln2"], x[:, None, :], cfg.norm)
-        x = x + _ffn(lp, h, cfg)[:, 0]
+
+        def attend(h, lp=lp, i=i):
+            a, kv = attn.apply_attention_decode(
+                lp["attn"], h[:, 0], cfg,
+                cache={k: c[i] for k, c in cache["kv"].items()},
+                length=length)
+            return a[:, None], kv
+        x, kv, _ = decoder_layer(lp, x, cfg, attend)
         per_layer.append(kv)
-    return x, {"kv": stack_trees(per_layer)}
+    return x[:, 0], {"kv": stack_trees(per_layer)}
 
 
 def _decode_rwkv(params, x, cache, cfg):
@@ -430,7 +422,8 @@ def _ring_decode(p: dict, x: torch.Tensor, cfg, st: dict, length: int
     nv[:, :, slot] = v.to(nv.dtype)
     lengths = torch.full((B,), min(length + 1, W), dtype=torch.int32,
                          device=x.device)
-    out = kops.decode_attention(q, nk, nv, lengths)
+    out = kops.decode_attention(q, nk, nv, lengths,
+                                logit_softcap=cfg.attn_logit_softcap)
     return out.reshape(B, cfg.q_dim) @ p["wo"].to(x.dtype), \
         {"k": nk, "v": nv}
 

@@ -35,19 +35,23 @@ from repro_torch.models.layers import (apply_embed, apply_norm,
 from repro_torch.models.spec import Spec, stack
 
 
-def dense_layer_spec(cfg) -> dict:
+def _decoder_norms(cfg) -> dict:
+    """A decoder layer's norms: before attention (``ln1``) and before
+    the feed-forward half (``ln2``), and with ``cfg.post_norms`` after
+    each too (``ln1_post``, ``ln2_post``)."""
     norm = norm_spec if cfg.norm == "rmsnorm" else layernorm_spec
-    return {"ln1": norm(cfg.d_model),
-            "attn": attn.attention_spec(cfg),
-            "ln2": norm(cfg.d_model),
+    names = ("ln1", "ln2") + (("ln1_post", "ln2_post") if cfg.post_norms
+                              else ())
+    return {n: norm(cfg.d_model) for n in names}
+
+
+def dense_layer_spec(cfg) -> dict:
+    return {**_decoder_norms(cfg), "attn": attn.attention_spec(cfg),
             "mlp": mlp_mod.gated_mlp_spec(cfg.d_model, cfg.d_ff)}
 
 
 def moe_layer_spec(cfg) -> dict:
-    norm = norm_spec if cfg.norm == "rmsnorm" else layernorm_spec
-    return {"ln1": norm(cfg.d_model),
-            "attn": attn.attention_spec(cfg),
-            "ln2": norm(cfg.d_model),
+    return {**_decoder_norms(cfg), "attn": attn.attention_spec(cfg),
             "moe": moe_mod.moe_spec(cfg)}
 
 
@@ -183,10 +187,14 @@ def _embed_input(params, batch, cfg):
 
 
 def _lm_head(params, x, cfg):
+    """The logits: against the tied table or the head, times
+    ``cfg.logit_scale`` (grok-1's output multiplier) where it is not 1."""
     if cfg.tie_embeddings:
         logits = apply_unembed(params["embed"], x)
     else:
         logits = x @ params["head"].to(x.dtype)
+    if cfg.logit_scale != 1.0:
+        logits = logits * cfg.logit_scale
     return constrain(logits, "batch", None, "vocab")
 
 
@@ -198,22 +206,36 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _dense_layer(lp, x, cfg, positions, window=None):
-    h = apply_norm(lp["ln1"], x, cfg.norm)
-    x = x + attn.apply_attention(lp["attn"], h, cfg, positions=positions,
-                                 causal=True, window=window)
-    h = apply_norm(lp["ln2"], x, cfg.norm)
-    x = x + mlp_mod.gated_mlp(lp["mlp"], h, cfg.act)
-    return constrain(x, "batch", "seq", None), _no_aux(x)
+def decoder_layer(lp, x, cfg, attend):
+    """One dense or MoE decoder layer on x (B, S, D): attention, then the
+    feed-forward half (the gated MLP, or the MoE), each as norm →
+    sublayer → (with ``cfg.post_norms``, grok-1's norm of the sublayer's
+    output) → residual add.  ``attend(h)`` runs the attention on the
+    normed x and returns (out, cache).  Returns (x, cache, the MoE's aux
+    loss or None).  The one body of the training forward, the prefills
+    and the decode steps, so the norms, their ε and the post-norms are
+    written here alone."""
+    def step(x, name, out):
+        if cfg.post_norms:
+            out = apply_norm(lp[name + "_post"], out, cfg.norm,
+                             eps=cfg.norm_eps)
+        return x + out
+
+    a, cache = attend(apply_norm(lp["ln1"], x, cfg.norm, eps=cfg.norm_eps))
+    x = step(x, "ln1", a)
+    h = apply_norm(lp["ln2"], x, cfg.norm, eps=cfg.norm_eps)
+    if cfg.family == "moe":
+        f, aux = moe_mod.apply_moe(lp["moe"], h, cfg)
+    else:
+        f, aux = mlp_mod.gated_mlp(lp["mlp"], h, cfg.act), None
+    return step(x, "ln2", f), cache, aux
 
 
-def _moe_layer(lp, x, cfg, positions):
-    h = apply_norm(lp["ln1"], x, cfg.norm)
-    x = x + attn.apply_attention(lp["attn"], h, cfg, positions=positions,
-                                 causal=True)
-    h = apply_norm(lp["ln2"], x, cfg.norm)
-    moe_out, aux = moe_mod.apply_moe(lp["moe"], h, cfg)
-    return constrain(x + moe_out, "batch", "seq", None), aux
+def _decoder_layer_train(lp, x, cfg, positions):
+    x, _, aux = decoder_layer(lp, x, cfg, lambda h: (attn.apply_attention(
+        lp["attn"], h, cfg, positions=positions, causal=True), None))
+    return constrain(x, "batch", "seq", None), \
+        _no_aux(x) if aux is None else aux
 
 
 def _rwkv_layer(lp, x, cfg):
@@ -309,13 +331,9 @@ def forward_train(params, batch: dict, cfg, *,
     B, S = batch["tokens"].shape
     x = _embed_input(params, batch, cfg)
     positions = _positions_for(cfg, B, S, batch, x.device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         x, aux = _scan_layers(
-            lambda lp, x: _dense_layer(lp, x, cfg, positions),
-            params["layers"], x, policy=remat_policy)
-    elif cfg.family == "moe":
-        x, aux = _scan_layers(
-            lambda lp, x: _moe_layer(lp, x, cfg, positions),
+            lambda lp, x: _decoder_layer_train(lp, x, cfg, positions),
             params["layers"], x, policy=remat_policy)
     elif cfg.family == "rwkv":
         x, aux = _scan_layers(lambda lp, x: _rwkv_layer(lp, x, cfg),
@@ -333,7 +351,7 @@ def forward_train(params, batch: dict, cfg, *,
                     _no_aux(x)),
                 params[key], x, policy=remat_policy)
             aux = aux + a
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+    x = apply_norm(params["final_norm"], x, cfg.norm, eps=cfg.norm_eps)
     return _lm_head(params, x, cfg), aux
 
 

@@ -20,14 +20,22 @@ match on time alone, since autograd's device thread launches a
 backward's kernels while the calling thread waits inside its span.
 Call :func:`take` outside any open span (a parent's index refers to the
 list it is returned in).
+
+``count(name, n)`` adds a host integer the caller already holds to a
+named counter, under the same rule (nothing while no profiler runs,
+nothing read from the device); :func:`take_counts` returns the counters
+and clears them.  The MoE counts its rows so: ``moe.slot_rows`` (the
+expert buffers' rows, G · E · C) and ``moe.routed_rows`` (the tokens'
+choices, T · k).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
 import time
-from typing import List
+from typing import Dict, List
 
 import torch
 
@@ -36,6 +44,7 @@ _NULL = contextlib.nullcontext()
 _spans: List["Span"] = []
 _lock = threading.Lock()
 _open = threading.local()        # per thread: indices of its open spans
+_counts: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass
@@ -85,4 +94,19 @@ def take() -> List[Span]:
     global _spans
     with _lock:
         out, _spans = _spans, []
+    return out
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler is active."""
+    if _enabled():
+        with _lock:
+            _counts[name] += int(n)
+
+
+def take_counts() -> Dict[str, int]:
+    """Every counter since the last call; the counters are cleared."""
+    with _lock:
+        out = dict(_counts)
+        _counts.clear()
     return out

@@ -677,6 +677,27 @@ def test_decode_attention_kernel_reads_a_stride0_batch(card, rng, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [30.0, 0.5])
+@pytest.mark.parametrize("s,split", [(64, False), (1152, True)])
+def test_decode_attention_kernel_caps_the_logits(card, rng, dtype, cap, s,
+                                                 split):
+    """grok-1's logit cap, cap · tanh(x / cap) of each scaled score x, at
+    its decode heads (48 / 8 of 128) against the capped plain version,
+    one chunk a row (unsplit) and many (split, with the merge kernel):
+    the queries times 10, so the scores spread to ±30 and the cap of 30
+    moves them too (the capped and uncapped plain versions differ)."""
+    q, k, v, lengths = _decode_case(rng, 2, 48, 8, s, 128, dtype,
+                                    [s, s - 37])
+    q = (q.float() * 10).to(dtype)
+    groups = da_mod.launch_plan(128, 6, da_mod.TILE, dtype)["groups"]
+    assert (da_mod.split_plan(2 * 8 * groups, s)[0] > 1) == split
+    _decode_check(q, k, v, lengths, dtype, logit_softcap=cap)
+    free = ref.decode_attention(q, k, v, lengths)
+    capped = ref.decode_attention(q, k, v, lengths, logit_softcap=cap)
+    assert float((free.float() - capped.float()).abs().max()) > 0.05
+
+
 def test_decode_attention_heads_per_block_comes_from_the_source(card):
     """The wrapper's launch plan (query heads a block takes, head groups,
     m16 tiles, warps over D, padded D, ring stages, shared memory) is the

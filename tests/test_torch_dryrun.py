@@ -1,6 +1,7 @@
 """The port's dry-run (``repro_torch.launch.{shapes,opcount,dryrun}``)
 and ``Model.abstract`` / ``Model.axes``, held to the JAX reference on
-the CPU.
+the CPU, each port config as its twin (``tests/jax_twin.py``: grok-1's
+published parts off, as the reference has them).
 
 * ``Model.abstract()`` (meta tensors) and ``Model.axes()`` give the
   reference's shapes, dtypes and logical axes for all ten configs.
@@ -62,7 +63,7 @@ from repro.launch import shapes as jshapes  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
 from repro.optim import OptimizerConfig as JOptConfig  # noqa: E402
-from repro_torch.configs import get_config as tget_config  # noqa: E402
+from repro_torch.configs import get_config as _tget_config  # noqa: E402
 from repro_torch.core.options import use_options  # noqa: E402
 from repro_torch.launch import dryrun as tdryrun  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
@@ -72,6 +73,8 @@ from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.models.spec import tree_leaves_with_path  # noqa: E402
 from repro_torch.optim import OptimizerConfig as TOptConfig  # noqa: E402
+
+from jax_twin import twin  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -84,6 +87,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def tget_config(arch, reduced=False):
+    """The port's config as the reference computes it (``jax_twin``)."""
+    return twin(_tget_config(arch, reduced=reduced))
 
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")

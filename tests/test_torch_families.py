@@ -22,8 +22,13 @@ whose wrappers run their plain versions on CPU tensors, and ``torch``):
 * grok-1-314b through ``serve_paged`` in ``continuous`` and
   ``prefill_chunk`` modes: the tokens of the reference's engine on
   ``xla`` and ``pallas``;
-* the reference's decode drops grok's softcap (its decode-attention
-  kernel takes none), and so does the port's.
+* the port's grok-1-314b is the published model and the reference's is
+  not: the port's config is held to the reference's as its twin
+  (``tests/jax_twin.py``: grok-1's published parts off, and the logit
+  cap off in both, since the reference's decode drops it); the port's
+  decode step and chunked prefill cap as its forward does
+  (``tests/test_torch_grok.py`` holds the published model to the plain
+  reference).
 
 Then the configs and specs of all ten architectures, the serving CLI on
 the CPU for each new architecture, and the two examples.
@@ -65,6 +70,8 @@ from repro_torch.models.spec import tree_leaves  # noqa: E402
 from repro_torch.models.spec import tree_leaves_with_path  # noqa: E402
 from repro_torch.optim import OptimizerConfig as TOptConfig  # noqa: E402
 from repro_torch.optim import init_opt_state as tinit_opt  # noqa: E402
+
+from jax_twin import PORT_ONLY, shared_fields, twin, uncapped  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -121,11 +128,17 @@ def _seq(cfg) -> int:
     return S + (jfront.VISION_PATCHES if cfg.frontend == "vision" else 0)
 
 
+def _twins(arch):
+    """The reduced config in both packages, at f32 compute, the port's
+    as the reference computes it (``jax_twin``)."""
+    return (jbuild(_f32(uncapped(jget_config(arch, reduced=True)))),
+            tbuild(_f32(twin(tget_config(arch, reduced=True), cap=False))))
+
+
 @pytest.fixture(scope="module", params=NEW)
 def models(request):
     arch = request.param
-    jm = jbuild(_f32(jget_config(arch, reduced=True)))
-    tm = tbuild(_f32(tget_config(arch, reduced=True)))
+    jm, tm = _twins(arch)
     rng = np.random.default_rng(11)
     host = jax.tree_util.tree_map(
         lambda a: (np.asarray(a, np.float32)
@@ -345,8 +358,7 @@ PAGED_MODES = {"continuous": {"n_slots": 2, "block_size": 4,
 
 @pytest.fixture(scope="module")
 def grok():
-    jm = jbuild(_f32(jget_config("grok-1-314b", reduced=True)))
-    tm = tbuild(_f32(tget_config("grok-1-314b", reduced=True)))
+    jm, tm = _twins("grok-1-314b")
     jp = jsteps.cast_compute(jm.init(0), "float32")
     tp = model_params_from_numpy(jax.device_get(jp), tm.cfg, "cpu")
     return jm, jp, tm, tp
@@ -375,59 +387,33 @@ def test_grok_serve_paged_matches_reference(grok, mode, ref_target):
     assert got["steps"] == want["steps"]
 
 
-def test_grok_decode_drops_the_softcap_as_the_reference_does(grok):
-    """The reference softcaps only its full-sequence attention; its
-    decode step and paged chunked prefill run the decode-attention
-    kernel, which takes no softcap.  At a softcap of 0.5 (so capping
-    moves the logits far), the port's decode step and chunked prefill
-    equal the reference's, and in both packages they differ from the
-    capped forward over the same positions, which they equal with no
-    softcap."""
-    jm0, jp, tm0, tp = grok
+def test_grok_decode_and_chunked_prefill_cap_as_its_forward_does():
+    """The port's published grok-1 caps its attention logits in every
+    path: at a cap of 0.5 (so capping moves the logits far), its decode
+    step and its paged chunked prefill equal its forward over the same
+    positions, and a forward with no cap differs from both."""
+    tm = tbuild(_f32(dataclasses.replace(
+        tget_config("grok-1-314b", reduced=True), attn_logit_softcap=0.5)))
+    free = tbuild(dataclasses.replace(tm.cfg, attn_logit_softcap=None))
+    tp = tm.init(0, "cpu")
     P = 8
-    prompt = np.random.default_rng(5).integers(
-        1, jm0.cfg.vocab_size, (1, P + 1)).astype(np.int32)
-    out = {}
-    for cap in (0.5, None):
-        jm = jbuild(dataclasses.replace(jm0.cfg, attn_logit_softcap=cap))
-        tm = tbuild(dataclasses.replace(tm0.cfg, attn_logit_softcap=cap))
-        jfwd = np.asarray(jm.forward(jp, {"tokens": jnp.asarray(prompt)})[0])
-        _, jcache = jm.prefill(jp, {"tokens": jnp.asarray(prompt[:, :P])},
-                               max_len=P + 1)
-        jdec = np.asarray(jm.decode_step(jp, jnp.asarray(prompt[:, P]),
-                                         jcache, jnp.int32(P))[0])
-        pools = jm.init_paged_cache(6, 4)
-        jchunk = None
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        1, tm.cfg.vocab_size, (1, P + 1)).astype(np.int32))
+    with tuse(ON_CPU["cuda"]):
+        fwd = tm.forward(tp, {"tokens": prompt})[0][0, -1]
+        uncapped_fwd = free.forward(tp, {"tokens": prompt})[0][0, -1]
+        _, cache = tm.prefill(tp, {"tokens": prompt[:, :P]}, max_len=P + 1)
+        dec = tm.decode_step(tp, prompt[:, P], cache, P)[0][0]
+        pools = tm.init_paged_cache(6, 4, device="cpu")
         for start in (0, 4, 8):
-            jchunk, pools = jm.paged_prefill_chunk(
-                jp, jnp.asarray(prompt[0, start:start + 4]),
-                jnp.int32(start), pools, jnp.asarray([1, 2, 3, 0]),
-                block_size=4)
-        with tuse(ON_CPU["cuda"]):
-            tfwd = tm.forward(tp, {"tokens": torch.from_numpy(prompt)})[0]
-            _, tcache = tm.prefill(
-                tp, {"tokens": torch.from_numpy(prompt[:, :P])},
-                max_len=P + 1)
-            tdec = tm.decode_step(tp, torch.from_numpy(prompt[:, P]),
-                                  tcache, P)[0]
-            tpools = tm.init_paged_cache(6, 4, device="cpu")
-            for start in (0, 4, 8):
-                tchunk, tpools = tm.paged_prefill_chunk(
-                    tp, torch.from_numpy(prompt[0, start:start + 4]), start,
-                    tpools, torch.tensor([1, 2, 3, 0], dtype=torch.int32),
-                    block_size=4)
-        _near(tfwd.detach().numpy(), jfwd, 1e-5, (cap, "forward"))
-        _near(tdec.numpy(), jdec, 1e-5, (cap, "decode"))
-        _near(tchunk.numpy(), np.asarray(jchunk), 1e-5, (cap, "chunk"))
-        out[cap] = (jfwd[:, -1], jdec, np.asarray(jchunk), tfwd[:, -1],
-                    tdec, tchunk)
-    for jf, jd, jc, tf, td, tc in (out[None],):
-        for fwd, other in ((jf, jd), (jf[0], jc), (tf, td), (tf[0], tc)):
-            _near(np.asarray(other), np.asarray(fwd), 1e-5, "uncapped")
-    jf, jd, jc, tf, td, tc = out[0.5]
-    for fwd, other in ((jf, jd), (jf[0], jc), (tf, td), (tf[0], tc)):
-        fwd, other = np.asarray(fwd), np.asarray(other)
-        assert np.abs(other - fwd).max() > 1e-2 * np.abs(fwd).max()
+            chunk, pools = tm.paged_prefill_chunk(
+                tp, prompt[0, start:start + 4], start, pools,
+                torch.tensor([1, 2, 3, 0], dtype=torch.int32), block_size=4)
+    fwd = fwd.detach().numpy()
+    for other in (dec, chunk):
+        _near(other.detach().numpy(), fwd, 1e-5, "capped")
+    assert np.abs(uncapped_fwd.detach().numpy() - fwd).max() > \
+        1e-2 * np.abs(fwd).max()
 
 
 # ---------------------------------------------------------------------------
@@ -438,12 +424,18 @@ def test_grok_decode_drops_the_softcap_as_the_reference_does(grok):
 def test_configs_and_specs_match_reference(arch):
     """Every field of the published and the reduced config, and the
     parameter tree's paths, shapes, logical axes and init kinds, so
-    ``model_params_from_numpy`` takes the reference's tree."""
+    ``model_params_from_numpy`` takes the reference's tree: the port's
+    as its twin (``jax_twin``), whose fields the reference lacks are at
+    their defaults."""
     assert tall_ids() == jall_ids()
+    defaults = {f.name: f.default for f in dataclasses.fields(
+        tget_config(arch))}
     for reduced in (False, True):
         jcfg = jget_config(arch, reduced=reduced)
-        tcfg = tget_config(arch, reduced=reduced)
-        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+        tcfg = twin(tget_config(arch, reduced=reduced))
+        assert shared_fields(tcfg) == dataclasses.asdict(jcfg)
+        assert {k: getattr(tcfg, k) for k in PORT_ONLY} == \
+            {k: defaults[k] for k in PORT_ONLY}
         jm, tm = jbuild(jcfg), tbuild(tcfg)
         want = {path: (tuple(s.shape), tuple(s.axes), s.init)
                 for path, s in tree_leaves_with_path(jm.spec)}

@@ -1,7 +1,9 @@
 """The port's MoE layer (``repro_torch.models.moe``), held to the JAX
 reference's ``repro.models.moe`` on the CPU at f32 compute.
 
-grok-1-314b (8 experts top-2 reduced to 4) and arctic-480b (128 experts
+grok-1-314b (8 experts top-2 reduced to 4; the port's config as its
+twin, ``tests/jax_twin.py``: renormalised gates and drops, as the
+reference routes) and arctic-480b (128 experts
 top-2 plus the dense residual, reduced to 8), with the reference's
 parameters from its own initializer and inputs from a numpy seed, in
 four cases:
@@ -35,6 +37,8 @@ from repro.models.spec import init_params as jinit  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.spec import tree_leaves_with_path  # noqa: E402
+
+from jax_twin import twin  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,7 +75,7 @@ def layer(request):
     MoE parameters (host arrays)."""
     arch = request.param
     jcfg = _f32(jget_config(arch, reduced=True))
-    tcfg = _f32(tget_config(arch, reduced=True))
+    tcfg = _f32(twin(tget_config(arch, reduced=True)))
     host = jax.device_get(jinit(jmoe.moe_spec(jcfg), jax.random.PRNGKey(0)))
     return {"arch": arch, "jcfg": jcfg, "tcfg": tcfg,
             "host": {k: np.array(v, np.float32) for k, v in host.items()}}

@@ -5,7 +5,8 @@ CPU.
 * The reference's 7 cases (``tests/test_sharding.py``) run through both
   packages on the same device-free meshes (16 × 16 and 2 × 16 × 16), and
   the specs are compared.
-* ``param_shardings`` of all ten full configs, ``train_state_shardings``
+* ``param_shardings`` of all ten full configs (the port's as their
+  twins, ``tests/jax_twin.py``), ``train_state_shardings``
   (AdamW and Adafactor), ``batch_shardings`` of every ``batch_specs`` and
   ``cache_shardings`` of every ``decode_specs`` equal the reference's,
   leaf for leaf, on both production meshes; the same specs come out of a
@@ -53,6 +54,8 @@ from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.models.spec import tree_leaves  # noqa: E402
 from repro_torch.models.spec import tree_map  # noqa: E402
 from repro_torch.optim import OptimizerConfig as TOptConfig  # noqa: E402
+
+from jax_twin import twin  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,7 +119,7 @@ _MODELS = {}
 def _models(arch) -> Models:
     if arch not in _MODELS:
         _MODELS[arch] = Models(jbuild(jget_config(arch)),
-                               tbuild(tget_config(arch)))
+                               tbuild(twin(tget_config(arch))))
     return _MODELS[arch]
 
 
@@ -202,7 +205,7 @@ def test_param_and_train_state_shardings_match_reference(arch, mesh):
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_batch_and_cache_shardings_match_reference(arch, mesh):
-    jcfg, tcfg = jget_config(arch), tget_config(arch)
+    jcfg, tcfg = jget_config(arch), twin(tget_config(arch))
     jm, tm = _jmesh(mesh), _tmesh(mesh)
     for shape in tshapes.SHAPES:
         jb = jsteps.batch_shardings(jm, jshapes.batch_specs(jcfg, shape))
