@@ -16,7 +16,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and UTMALDG and every f32 FFMA kernel LDGSTS, and every register-path
    kernel of RMSNorm and the row softmax (``rmsnorm.cu``,
    ``row_softmax.cu``: f32 and bf16, 1-8 vectors a thread) 16-byte loads
-   (LDG.E.128) and no local memory (LDL / STL), every RG-LRU kernel
+   (LDG.E.128) and no local memory (LDL / STL), every grouped
+   expert-product kernel (``grouped_gemm.cu``) HGMMA and UTMALDG and no
+   local memory, every RG-LRU kernel
    (``rglru.cu``) no local memory, its vector kernels 16-byte cp.async into
    their shared ring (LDGSTS.E.BYPASS.128),
    every SpMV kernel (``spmv.cu``) its evict-first stream loads
@@ -238,9 +240,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     prefill ms (the first's device busy ms and largest kernels from the
     profiler), the decode step's host ms, device busy ms, launches and
     largest kernels, the expert products' share of its device time
-    (``aten::einsum``, profiler) beside their padded rows, and one
-    layer's expert FFN at the step's buffer timed as the step fills it
-    (8 of 4096 rows) and with every row filled; the weights
+    (the grouped kernels, profiler) beside their routed rows, and one
+    layer's padded expert FFN (the path training and f32 keep) at the
+    step's buffer timed as the step would fill it (8 of 4096 rows) and
+    with every row filled; the weights
     widened to f32 in place, one decode step's bf16 logits on both
     targets against the f32 step (phase 8's gate), then the requests'
     f32 greedy tokens on ``cuda`` and ``torch``, equal; (b) whisper-base
@@ -315,7 +318,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     tolerances of ``torch`` (ResNet18: 1e-3 of an f64 evaluation, the
     same top-1 classes); the block's device time (and with the host's
     share) under each route beside the card's name and power limit;
-15. print the ``{"kernels": [...]}`` line (sixteen kernels: flash
+21. (run after 20, before 15's lines) the MoE's grouped expert products
+    (``kernels/grouped_gemm.py``, ``csrc/grouped_gemm.cu``) at grok-1's
+    decode shapes, one layer (512 tokens' top-2 of 8 experts: 1,024 rows,
+    6144 x 32768, bf16): one launch of each kernel and no plain call,
+    each within 2^-7 of its plain version's largest entry (down fed the
+    plain h), and each timed beside its bound (the experts' weights read
+    once), its plain version and, as the library time, the padded
+    einsums it replaces over the (32, 8, 128, 6144) buffer;
+15. print the ``{"kernels": [...]}`` line (eighteen kernels: flash
     attention's bf16 and f32 kernels are two rows, and so are the bf16
     ``wgmma`` and the FFMA routes of ``kk.gemm`` and of the tiled batched
     product), the card line again, and as the last line ``{"ok": true,
@@ -1630,46 +1641,43 @@ def families_phase(ctx) -> dict:
     busy, top, by_name = device_busy(lambda: step("cuda"))
     if busy <= 0:
         fail("the profiler saw no kernel time in grok's decode step")
-    # the expert products' share: the einsums' device time (their GEMMs
-    # and operand copies) over the step's busy time
+    # the expert products' share: the grouped kernels' device time over
+    # the step's busy time (bf16 on the card: the routed rows alone)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             step("cuda")
         torch.cuda.synchronize()
-    ein = sum(getattr(ev, "device_time_total",
-                      getattr(ev, "cuda_time_total", 0.0))
-              for ev in prof.key_averages() if ev.key == "aten::einsum")
-    ein_ms = ein / 3 / 1e3
+    grouped_ms = sum(getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+                     for ev in prof.key_averages()
+                     if "lapis_grouped" in ev.key) / 3 / 1e3
     G = math.gcd(GROK_SLOTS, moe_mod.MOE_GROUPS)
     C = moe_mod.capacity(GROK_SLOTS // G, cfg)
-    rows_run = G * cfg.n_experts * C
+    rows_run = GROK_SLOTS * cfg.experts_per_tok
     flops = 2.0 * rows_run * cfg.d_model * cfg.d_ff * 3 * cfg.n_layers
     grok["decode_step"] = {
         "host_ms": host_t, "wall_ms": wall, "device_busy_ms": busy,
         "top_kernels_ms": top, "launches": per_step,
-        "expert_einsum_ms": ein_ms, "expert_share": ein_ms / busy,
-        "expert_rows_run": rows_run,
-        "expert_rows_real": GROK_SLOTS * cfg.experts_per_tok,
-        "expert_tflop": flops / 1e12}
+        "expert_grouped_ms": grouped_ms, "expert_share": grouped_ms / busy,
+        "expert_rows_run": rows_run, "expert_tflop": flops / 1e12}
     print(f"  decode step ({GROK_SLOTS} slots): device busy {busy:.3f} ms "
           f"(profiler), host {host_t:.3f} ms, synchronized wall {wall:.3f} "
           f"ms (device busy {busy / wall:.0%}); launches per step {per_step}",
           flush=True)
-    print(f"    expert products (aten::einsum, profiler): {ein_ms:.3f} ms a "
-          f"step, {ein_ms / busy:.0%} of the busy time; {G} groups x "
-          f"{cfg.n_experts} experts x {C} slots = {rows_run} rows a layer "
-          f"where {GROK_SLOTS * cfg.experts_per_tok} are real: "
-          f"{flops / 1e12:.1f} TFLOP a step, "
-          f"{flops / 1e12 / (ein_ms / 1e3 or float('inf')):.0f} TFLOP/s",
+    print(f"    expert products (grouped kernels, profiler): {grouped_ms:.3f} "
+          f"ms a step, {grouped_ms / busy:.0%} of the busy time; {rows_run} "
+          f"routed rows a layer (the padded path's {G} groups x "
+          f"{cfg.n_experts} experts x {C} slots would run "
+          f"{G * cfg.n_experts * C}): {flops / 1e12:.3f} TFLOP a step",
           flush=True)
     print("    largest kernels (ms per step): " + "; ".join(
         f"{name[:60]} {t:.4f}" for name, t in top), flush=True)
-    # the three expert products of one layer at the step's buffer shape:
-    # on the step's buffer (all but 8 of its rows zero) and on the same
-    # shape filled, which is the work the padding costs were every slot
-    # real
+    # the padded path's three expert products of one layer at the
+    # step's buffer shape (training and f32 still take it): on the step's
+    # buffer (all but 8 of its rows zero) and on the same shape filled,
+    # which is the work the padding costs were every slot real
     moe_p = {k: v[0] for k, v in params["layers"]["moe"].items()}
     filled = rand_t((G, cfg.n_experts, C, cfg.d_model), bf)
     sparse = torch.zeros_like(filled)
@@ -1682,7 +1690,8 @@ def families_phase(ctx) -> dict:
                                                "filled": t_filled}
     print(f"    one layer's expert FFN at the step's buffer ({G} x "
           f"{cfg.n_experts} x {C} x {cfg.d_model}, bf16, CUDA events): "
-          f"{t_sparse:.3f} ms with the step's {2 * G} of {rows_run} rows "
+          f"{t_sparse:.3f} ms with the step's {rows_run} of "
+          f"{G * cfg.n_experts * C} rows "
           f"filled, {t_filled:.3f} ms with every row filled", flush=True)
     del filled, sparse, moe_p      # moe_p's views would keep the bf16 tree
 
@@ -2755,6 +2764,88 @@ def verification_phase(ctx) -> dict:
             "interception": interception, "wall_s": wall}
 
 
+def grouped_experts_phase(ctx) -> dict:
+    """Phase 21 (the module docstring): the MoE's grouped expert products
+    at grok-1's decode shapes, one layer: 512 tokens' top-2 of 8 experts
+    (1,024 rows, ~128 an expert), bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import activation
+    dev, time_ms, compare = ctx["dev"], ctx["time_ms"], ctx["compare"]
+    cfg = get_config("grok-1-314b")
+    M, Fw, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.experts_per_tok
+    T, R, bf = 512, 512 * cfg.experts_per_tok, torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+
+    def rand(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=bf).mul_(scale)
+    wg, wu = rand((E, M, Fw), M ** -0.5), rand((E, M, Fw), M ** -0.5)
+    wd = rand((E, Fw, M), Fw ** -0.5)
+    choice = torch.randn((T, E), generator=gen, device=dev).topk(
+        k, dim=1).indices.flatten()
+    loads = torch.bincount(choice, minlength=E)
+    offsets = F.pad(loads.cumsum(0), (1, 0)).to(torch.int32)
+    x = rand((R, M), 1.0)
+    print(f"phase 21: grouped expert products, grok-1 decode, one layer: "
+          f"{R} rows over {E} experts, loads {loads.tolist()}", flush=True)
+    ctx["reset_counts"]()
+    h = gg.gate_up(x, wg, wu, offsets, cfg.act)
+    y = gg.down(h, wd, offsets)
+    torch.cuda.synchronize()
+    c = ctx["path_counts"]["grouped experts (grok decode)"] = ctx["counts"]()
+    if c["grouped_gate_up"] != (1, 0) or c["grouped_down"] != (1, 0):
+        fail(f"the grouped products launched {c['grouped_gate_up']} / "
+             f"{c['grouped_down']} (launches, plain calls); want (1, 0)")
+    want_h = gg.plain_gate_up(x, wg, wu, offsets, cfg.act)
+    compare("grouped_gate_up", h, want_h, 2 ** -7,
+            "grouped gate_up (grok decode, bf16)", relative=True)
+    want_y = gg.plain_down(want_h, wd, offsets)
+    compare("grouped_down", gg.down(want_h, wd, offsets), want_y, 2 ** -7,
+            "grouped down (grok decode, bf16)", relative=True)
+    del y, want_y
+    # the padded einsums they replace, over the (G, E, C, M) buffer the
+    # padded path fills at 512 tokens (32 x 8 x 128 slots)
+    G = math.gcd(T, moe_mod.MOE_GROUPS)
+    C = moe_mod.capacity(T // G, cfg)
+    buf = torch.zeros((G, E, C, M), dtype=bf, device=dev)
+    buf.view(-1, M)[:R] = x
+    act = activation(cfg.act)
+
+    def padded_gate_up():
+        return act(torch.einsum("gecm,emf->gecf", buf, wg)) \
+            * torch.einsum("gecm,emf->gecf", buf, wu)
+    h_buf = padded_gate_up()
+    stats = {"loads": loads.tolist(), "padded_rows": G * E * C}
+    w_bytes = 2.0 * E * M * Fw
+    for name, kern, plain, lib, ops_n, bytes_n in (
+            ("grouped_gate_up",
+             lambda: gg.gate_up(x, wg, wu, offsets, cfg.act),
+             lambda: gg.plain_gate_up(x, wg, wu, offsets, cfg.act),
+             padded_gate_up, 4.0 * R * M * Fw,
+             2 * w_bytes + 2.0 * R * (M + Fw)),
+            ("grouped_down", lambda: gg.down(h, wd, offsets),
+             lambda: gg.plain_down(h, wd, offsets),
+             lambda: torch.einsum("gecf,efm->gecm", h_buf, wd),
+             2.0 * R * M * Fw, w_bytes + 2.0 * R * (M + Fw))):
+        t_k, t_p, t_l = time_ms(kern), time_ms(plain), time_ms(lib)
+        b_ms, b_by = bound(bytes_n, ops_n, PEAK_BF16_PER_S)
+        ctx["add_row"](name, t_k, t_p, t_l, ops_n, bytes_n)
+        ctx["rows"][name]["peak"] = PEAK_BF16_PER_S
+        stats[name] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  {name}: {t_k:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{b_ms / t_k:.1%} of it), plain {t_p:.4f} ms, the padded "
+              f"einsums it replaces {t_l:.4f} ms", flush=True)
+    del wg, wu, wd, buf, h_buf, h, want_h, x
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2772,6 +2863,7 @@ def main() -> int:
     from repro_torch.kernels import batched_gemm as bgm
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_kv as pk
@@ -2807,7 +2899,8 @@ def main() -> int:
                 "batched_gemm_tiled": KernelCount(bgm.batched_gemm_tiled,
                                                   "launches_ffma"),
                 "batched_gemm_tiled_bf16": KernelCount(
-                    bgm.batched_gemm_tiled, "launches_wgmma")}
+                    bgm.batched_gemm_tiled, "launches_wgmma"),
+                "grouped_gate_up": gg.gate_up, "grouped_down": gg.down}
     path_counts = {}     # path -> counts() read just after driving it
 
     def reset_counts() -> None:
@@ -3117,6 +3210,18 @@ def main() -> int:
         if not all(w in body or (w == "LDGSTS" and "UTMALDG" in body)
                    for w in need):
             fail(f"{n} SASS lacks {need}")
+    # the MoE's grouped products: every kernel wgmma fed by TMA, no local
+    # memory
+    grouped_fns = {n: b for n, b in sass_functions(
+        _build.sass(gg.grouped_gemm_kernel())).items()
+        if "lapis_grouped_kernel" in n}
+    if not grouped_fns or any(
+            "HGMMA" not in b or "UTMALDG" not in b or "LDL" in b or "STL" in b
+            for b in grouped_fns.values()):
+        fail("a grouped expert-product kernel lacks HGMMA or UTMALDG or "
+             "spills to local memory")
+    print(f"grouped_gemm.cu SASS: {len(grouped_fns)} kernels, each HGMMA + "
+          "UTMALDG, no LDL / STL", flush=True)
     # the GEMM: in both libraries every bf16 kernel is wgmma fed by TMA and
     # every f32 FFMA kernel stages by cp.async
     for ks in (mm.matmul_kernel(), bgm.batched_gemm_kernel(False)):
@@ -4937,6 +5042,12 @@ def main() -> int:
         "rn_fn": rn_fn, "rn_spec": rn_spec, "rn_w": rn_w,
         "mala_fn": mala_fn, "mala_spec": mala_spec, "bmm": bmm})
 
+    # ---------------------------------------------------------------- 21
+    grouped_stats = grouped_experts_phase({
+        "reset_counts": reset_counts, "counts": counts,
+        "path_counts": path_counts, "time_ms": time_ms, "compare": compare,
+        "add_row": add_row, "rows": rows, "dev": dev})
+
     # ---------------------------------------------------------------- 15
     sources_of = {
         "matmul": ("src/repro_torch/kernels/csrc/gemm_tile.cuh",
@@ -4977,6 +5088,12 @@ def main() -> int:
         "batched_gemm_tiled_bf16": (
             "src/repro_torch/kernels/csrc/gemm_sm90.cuh",
             "src/repro/kernels/batched_gemm.py:94"),
+        "grouped_gate_up": (
+            "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "none: the XLA einsums of src/repro/models/moe.py::expert_ffn"),
+        "grouped_down": (
+            "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "none: the XLA einsums of src/repro/models/moe.py::expert_ffn"),
     }
     kernels = []
     for name in wrappers:
@@ -5018,6 +5135,7 @@ def main() -> int:
                       "families": families_stats,
                       "distribution": distribution_stats,
                       "verification": verification_stats,
+                      "grouped_experts": grouped_stats,
                       "launches_by_path": {
                           p: {k: l for k, (l, _) in c.items() if l}
                           for p, c in path_counts.items()}}),

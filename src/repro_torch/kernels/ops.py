@@ -60,6 +60,7 @@ from repro_torch.kernels import batched_gemm as _bg
 from repro_torch.kernels import chunked as _chunked
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import paged_kv as _pk
 from repro_torch.kernels import ref
@@ -366,10 +367,11 @@ register("kk.rglru_scan", "cuda")(
 
 def serving_kernel_sources() -> list:
     """The kernel libraries the serving paths launch besides the page
-    gather: decode attention, RMSNorm, flash attention (f32 and bf16)
-    and the two recurrent scans."""
+    gather: decode attention, RMSNorm, flash attention (f32 and bf16),
+    the two recurrent scans and the MoE's grouped expert products."""
     return [_da.decode_attention_kernel(), _rn.rmsnorm_kernel(),
-            *_fa.kernel_sources(), _rw.rwkv6_kernel(), _rg.rglru_kernel()]
+            *_fa.kernel_sources(), _rw.rwkv6_kernel(), _rg.rglru_kernel(),
+            _gg.grouped_gemm_kernel()]
 
 
 def kernel_sources(graph) -> list:

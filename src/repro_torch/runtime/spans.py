@@ -25,7 +25,8 @@ list it is returned in).
 named counter, under the same rule (nothing while no profiler runs,
 nothing read from the device); :func:`take_counts` returns the counters
 and clears them.  The MoE counts its rows so: ``moe.slot_rows`` (the
-expert buffers' rows, G · E · C) and ``moe.routed_rows`` (the tokens'
+rows its expert products are given: T · k over the routed rows alone,
+G · E · C over the padded buffers) and ``moe.routed_rows`` (the tokens'
 choices, T · k).
 """
 from __future__ import annotations

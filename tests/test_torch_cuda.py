@@ -1792,3 +1792,89 @@ def test_reduced_resnet18_and_mala_cuda_match_torch(card):
         want = pipeline.compile(fn, spec,
                                 options=CompileOptions(target="torch"))(arg)
         torch.testing.assert_close(got, want, **tol)
+
+
+# the grouped expert products' cases: (d_model, d_ff, rows an expert, act)
+GROUPED_CASES = {
+    # grok-1's widths: loads on both sides of 128 and of the kernels'
+    # 192-row block, an empty expert and loads past 256; down splits K at
+    # these 1,197 rows
+    "grok": (6144, 32768, [0, 1, 127, 129, 191, 193, 256, 300], "gelu"),
+    # arctic's 128 experts at small widths, many rows: no split
+    "e128": (1024, 512, None, "silu"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_grouped_kernels_match_plain(card, case, dtype):
+    """Both grouped kernels against their plain versions on the same CUDA
+    tensors (down fed the plain h): within one rounding of the output's
+    type (2^-7 of the largest entry in bf16, 2^-10 in f16: the f32 sums
+    differ in order only); one launch each, no plain call."""
+    from repro_torch.kernels import grouped_gemm as gg
+    M, F, loads, act = GROUPED_CASES[case]
+    if loads is None:
+        loads = np.random.default_rng(4).integers(0, 40, 128).tolist()
+    E, R = len(loads), sum(loads)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+
+    def rand(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype).mul_(scale)
+    x = rand((R, M), 1.0)
+    wg, wu = rand((E, M, F), M ** -0.5), rand((E, M, F), M ** -0.5)
+    wd = rand((E, F, M), F ** -0.5)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(loads)]),
+                           dtype=torch.int32, device="cuda")
+    counts = lambda: (gg.gate_up.launches, gg.down.launches,  # noqa: E731
+                      gg.gate_up.plain_calls, gg.down.plain_calls)
+    before = counts()
+    h = gg.gate_up(x, wg, wu, offsets, act)
+    want_h = gg.plain_gate_up(x, wg, wu, offsets, act)
+    y = gg.down(want_h, wd, offsets)
+    want_y = gg.plain_down(want_h, wd, offsets)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 2 ** -10
+    for name, got, want in (("h", h, want_h), ("y", y, want_y)):
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+def test_grok_moe_layer_takes_the_grouped_kernels_without_a_host_read(card):
+    """grok-1's MoE layer at its widths on 512 tokens, bf16, no autograd:
+    the grouped kernels launch once each with the card in sync-debug
+    "error" mode (any host read raises), and the output is the padded
+    einsums' on the same inputs within 2e-2 of its largest entry (they
+    round g, u and h to bf16, the kernel h once from f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.models import moe
+    cfg = get_config("grok-1-314b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    p = {k: torch.randn(s.shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).mul_(s.shape[-2] ** -0.5)
+         for k, s in moe.moe_spec(cfg).items()}
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    before = (gg.gate_up.launches, gg.down.launches)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, aux = moe.apply_moe(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (gg.gate_up.launches, gg.down.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want, want_aux = moe.apply_moe(p, x.clone().requires_grad_(), cfg)
+    assert gg.gate_up.launches == before[0] + 1
+    err = float((out.float() - want.detach().float()).abs().max())
+    assert err <= 2e-2 * float(want.detach().float().abs().max()), err
+    assert float(aux) == float(want_aux.detach())

@@ -18,11 +18,21 @@ four cases:
   tie that ``jax.lax.top_k`` gives to the lower index.
 
 ``apply_moe``'s output within 1e-5 of its largest entry and the aux loss
-within 1e-5 relative; the gradients of ⟨out, g⟩ + aux with respect to
-every parameter and the input (autograd against ``jax.grad``) within
-1e-5 of each leaf's largest entry.
+within 1e-5 relative, on both of its paths: the padded einsums (which
+the CPU always takes) and the grouped products over the routed rows
+alone (which the card takes; here :func:`grouped_path` is patched so the
+plain versions of ``kernels/grouped_gemm.py`` run); the gradients of
+⟨out, g⟩ + aux with respect to every parameter and the input (autograd
+against ``jax.grad``, so the padded path) within 1e-5 of each leaf's
+largest entry.  The grouped products are held to the padded einsum at
+loads the layer's routing rarely gives (an empty expert, one expert
+taking every row, 128 experts), and the path choice and the row counter
+to what the call can observe.
 """
+import contextlib
 import dataclasses
+import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -35,8 +45,11 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.spec import init_params as jinit  # noqa: E402
 from repro_torch.configs import get_config as tget_config  # noqa: E402
+from repro_torch.dist import sharding  # noqa: E402
+from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.spec import tree_leaves_with_path  # noqa: E402
+from repro_torch.runtime import spans  # noqa: E402
 
 from jax_twin import twin  # noqa: E402
 
@@ -128,17 +141,31 @@ def reference(layer):
     return res
 
 
-def _port(layer, case):
+def _grouped():
+    """The grouped path taken on the CPU, as the card takes it."""
+    return mock.patch.object(tmoe, "grouped_path", lambda p, x: True)
+
+
+def _port(layer, case, path="padded"):
+    """The port's layer on a case's inputs: on the padded path with
+    leaves that require grad, on the grouped path with plain tensors."""
     p, x, g = _inputs(layer, case)
-    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
-    tx = torch.from_numpy(x).requires_grad_()
-    out, aux = tmoe.apply_moe(tp, tx, layer["tcfg"])
+    grad = path == "padded"
+    tp = {k: torch.from_numpy(v).requires_grad_(grad) for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_(grad)
+    with _grouped() if path == "grouped" else contextlib.nullcontext():
+        out, aux = tmoe.apply_moe(tp, tx, layer["tcfg"])
     return tp, tx, torch.from_numpy(g), out, aux
 
 
+@pytest.mark.parametrize("path", ["padded", "grouped"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_apply_moe_matches_reference(layer, reference, case):
-    _, _, _, out, aux = _port(layer, case)
+def test_apply_moe_matches_reference(layer, reference, case, path):
+    before = (gg.gate_up.plain_calls, gg.down.plain_calls)
+    _, _, _, out, aux = _port(layer, case, path)
+    took = (gg.gate_up.plain_calls - before[0],
+            gg.down.plain_calls - before[1])
+    assert took == ((1, 1) if path == "grouped" else (0, 0))
     want = reference[case]
     assert out.shape == want["out"].shape and out.dtype == torch.float32
     _near(out.detach().numpy(), want["out"], 1e-5, (layer["arch"], case))
@@ -206,3 +233,106 @@ def test_spec_groups_and_capacity_match_reference(arch):
         for t in (1, 2, 8, 37, 64, 128, 301, 512, 4096):
             assert tmoe._n_groups(t) == jmoe._n_groups(t)
             assert tmoe.capacity(t, tcfg) == jmoe.capacity(t, jcfg)
+
+
+def _rows_case(case):
+    """(cfg, loads) of a grouped-product case: arctic's reduced widths,
+    8 experts (128 for ``e128``), and each expert's row count."""
+    cfg = _f32(tget_config("arctic-480b", reduced=True))
+    rng = np.random.default_rng(11)
+    if case == "random":
+        loads = rng.integers(1, 40, cfg.n_experts)
+    elif case == "empty_expert":
+        loads = rng.integers(1, 40, cfg.n_experts)
+        loads[3] = 0
+    elif case == "one_expert":      # every row to one expert, past 256
+        loads = np.zeros(cfg.n_experts, np.int64)
+        loads[5] = 300
+    else:                           # e128: many small experts, some empty
+        cfg = dataclasses.replace(cfg, n_experts=128)
+        loads = rng.integers(0, 5, 128)
+    return cfg, [int(n) for n in loads]
+
+
+@pytest.mark.parametrize("case", ["random", "empty_expert", "one_expert",
+                                  "e128"])
+def test_grouped_products_match_the_padded_einsum(case):
+    """gate_up then down over rows sorted by expert equal the padded
+    einsums (``expert_ffn``) over the same rows placed in capacity slots,
+    at f32 within 1e-5 of the largest entry; rows past the offsets stay
+    zero."""
+    cfg, loads = _rows_case(case)
+    E, M, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(5)
+    p = {k: torch.from_numpy(rng.standard_normal(s.shape).astype(np.float32)
+                             * s.shape[-2] ** -0.5)
+         for k, s in tmoe.moe_spec(cfg).items()}
+    R = sum(loads)
+    x = torch.from_numpy(rng.standard_normal((R + 3, M)).astype(np.float32))
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(loads)]),
+                           dtype=torch.int32)
+    y = gg.down(gg.gate_up(x, p["w_gate"], p["w_up"], offsets, cfg.act),
+                p["w_down"], offsets)
+    assert y.shape == (R + 3, M) and not y[R:].any()
+    C = max(loads)
+    buf = torch.zeros((1, E, C, M))
+    for e in range(E):
+        buf[0, e, :loads[e]] = x[offsets[e]:offsets[e + 1]]
+    want = tmoe.expert_ffn(p, buf, cfg)[0]
+    want = torch.cat([want[e, :loads[e]] for e in range(E)])
+    _near(y[:R].numpy(), want.numpy(), 1e-5, case)
+
+
+def _fake(kind, dtype, grad=False):
+    return types.SimpleNamespace(device=torch.device(kind), dtype=dtype,
+                                 requires_grad=grad)
+
+
+def test_grouped_path_follows_grad_mesh_and_dtype():
+    """The grouped products run where autograd records nothing, no mesh
+    is active and the tensors are bf16 / f16 on the card; training, the
+    meshed path, f32 on the card, CPU and meta tensors keep the padded
+    einsums."""
+    w = {k: torch.zeros(2, 8, 8) for k in ("w_gate", "w_up", "w_down")}
+    x = _fake("cuda", torch.bfloat16)
+    assert tmoe.grouped_path(w, x)
+    assert not tmoe.grouped_path(w, _fake("cuda", torch.bfloat16, True))
+    with torch.no_grad():
+        assert tmoe.grouped_path(w, _fake("cuda", torch.bfloat16, True))
+    trained = dict(w, w_up=w["w_up"].clone().requires_grad_())
+    assert not tmoe.grouped_path(trained, x)
+    with torch.no_grad():
+        assert tmoe.grouped_path(trained, x)
+    with sharding.use_mesh(object()):
+        assert not tmoe.grouped_path(w, x)
+    assert tmoe.grouped_path(w, x)
+    for dtype, want in ((torch.bfloat16, True), (torch.float16, True),
+                        (torch.float32, False)):
+        assert tmoe.grouped_path(w, _fake("cuda", dtype)) == want
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        assert not tmoe.grouped_path(w, torch.zeros(1, 4, 8, dtype=dtype))
+        assert not tmoe.grouped_path(w, torch.zeros(1, 4, 8, dtype=dtype,
+                                                    device="meta"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_slot_rows_count_what_the_products_are_given(arch):
+    """``moe.slot_rows``: T · k on the grouped path, G · E · C on the
+    padded one; ``moe.routed_rows`` T · k on both."""
+    cfg = _f32(tget_config(arch, reduced=True))
+    B, S = CASES["g32"]
+    T, k = B * S, cfg.experts_per_tok
+    G = tmoe._n_groups(T)
+    p = {key: torch.randn(s.shape) for key, s in tmoe.moe_spec(cfg).items()}
+    x = torch.randn(B, S, cfg.d_model)
+    want = {"grouped": T * k,
+            "padded": G * cfg.n_experts * tmoe.capacity(T // G, cfg)}
+    for path in ("grouped", "padded"):
+        spans.take_counts()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]), \
+                _grouped() if path == "grouped" else contextlib.nullcontext():
+            tmoe.apply_moe(p, x, cfg)
+        counts = spans.take_counts()
+        assert counts == {"moe.slot_rows": want[path],
+                          "moe.routed_rows": T * k}, path
